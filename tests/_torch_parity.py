@@ -1,0 +1,79 @@
+"""Shared helpers of the qmps_torch parity tests (not collected: no test_
+prefix).  Each test feeds the same numpy inputs, made from a seed, to a
+JAX function of qmps_tpu and to its qmps_torch port, and compares values
+and gradients.  For a real loss of complex inputs torch's ``.grad`` is
+``conj(jax.grad)``; :func:`assert_parity` compares them with that
+correction.
+"""
+import numpy as np
+import pytest
+import torch
+
+# the suite runs under several xdist workers on a few cores
+torch.set_num_threads(1)
+
+_X = np.array([[0.0, 1.0], [1.0, 0.0]])
+_Z = np.diag([1.0, -1.0])
+_I = np.eye(2)
+
+
+def require_cuda() -> torch.device:
+    """The CUDA device, or skip the calling test (decided when the test
+    runs, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m cuda on the card)")
+    return torch.device("cuda")
+
+
+def left_canonical(rng, B):
+    """(B, 2, 2, 2) complex128 left-canonical D = 2 tensors A[s, i, j] from
+    numpy QR of complex normals (the sweep's own initial layout)."""
+    x = rng.standard_normal((B, 4, 2)) + 1j * rng.standard_normal((B, 4, 2))
+    V, _ = np.linalg.qr(x)
+    return V.reshape(B, 2, 2, 2).transpose(0, 2, 1, 3).copy()
+
+
+def tfim_h(g):
+    """Host TFIM two-site matrices -ZZ + g (XI + IX)/2 for each g (n, 4, 4)."""
+    g = np.asarray(g, np.float64)[..., None, None]
+    return -np.kron(_Z, _Z) + g / 2 * (np.kron(_X, _I) + np.kron(_I, _X))
+
+
+def transfer_matrices(B, seed):
+    """One-site transfer matrices (B, 4, 4) of left-canonical D = 2 tensors
+    (dominant eigenvalue 1)."""
+    A = left_canonical(np.random.default_rng(seed), B)
+    return np.einsum("bsik,bsjl->bijkl", A, A.conj()).reshape(B, 4, 4)
+
+
+def phase_aligned(v, ref):
+    """Rows of v rotated by the global phase that best matches ref."""
+    ph = np.sum(v.conj() * ref, axis=-1)
+    return v * (ph / np.abs(ph))[:, None]
+
+
+def to_np(t) -> np.ndarray:
+    return t.detach().cpu().resolve_conj().numpy()
+
+
+def assert_parity(jax_fn, torch_fn, args, atol, grad_atol=None):
+    """Run ``jax_fn`` and ``torch_fn`` on the same numpy ``args`` and
+    compare their outputs to ``atol``; with ``grad_atol``, also the
+    gradients of the summed output with respect to every argument, torch's
+    against conj(jax.grad)."""
+    # imported here: the card's tests (test_torch_cuda.py) use this module
+    # on a machine without JAX
+    import jax
+    import jax.numpy as jnp
+
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [torch.tensor(a, requires_grad=grad_atol is not None) for a in args]
+    out_j = np.asarray(jax_fn(*jargs))
+    out_t = torch_fn(*targs)
+    np.testing.assert_allclose(to_np(out_t), out_j, atol=atol)
+    if grad_atol is None:
+        return
+    out_t.sum().backward()
+    for k, (a, t) in enumerate(zip(args, targs)):
+        gj = jax.grad(lambda x: jnp.sum(jax_fn(*jargs[:k], x, *jargs[k + 1:])))(jargs[k])
+        np.testing.assert_allclose(to_np(t.grad), np.conj(np.asarray(gj)), atol=grad_atol)
