@@ -292,24 +292,8 @@ __global__ void __launch_bounds__(kThreads)
         G[s * 4 + j * 2 + l] = G[s * 4 + j * 2 + l] + conj(acc);
       }
 
-  // ---- AA build: Abar[s, a, b] = sum_{t,j} G[(s t), a, j] A[t, b, j]
-  //                              + sum_{t,i} G[(t s), i, b] A[t, i, a] ----
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        c32 acc = mk(0.f, 0.f);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) cfma(acc, G[(s * 2 + t) * 4 + p * 2 + j], a[t * 4 + c * 2 + j]);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) cfma(acc, G[(t * 2 + s) * 4 + i * 2 + c], a[t * 4 + i * 2 + p]);
-        }
-        st(abar_out + (size_t)b * 8, s * 4 + p * 2 + c, acc);
-      }
+  // ---- through the AA build ----
+  store_aa_adjoint(G, a, abar_out + (size_t)b * 8);
 }
 
 }  // namespace qmps

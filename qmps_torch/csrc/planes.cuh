@@ -2,12 +2,12 @@
 // registers, the two-site block AA, the transfer matrix E and the N = 4
 // dominant-eigenpair solve.
 //
-// Counterparts in the JAX package: tdvp_fused.py::_cmul / _plane_AA,
-// energy_fused.py::_plane_E, pallas_power.py::_solve_planes (squaring) and
-// ::_power_kernel (power iteration).  There every quantity is a
-// (rows, 128) plane of the batch; here it is one scalar of one thread's
-// batch element, so the same unrolled algebra runs per thread with all
-// state in registers.
+// Counterparts in the JAX package: tdvp_fused.py::_cmul / _plane_AA /
+// _build_E_planes, energy_fused.py::_plane_E and the AA-build adjoint,
+// pallas_power.py::_solve_planes (squaring) and ::_power_kernel (power
+// iteration).  There every quantity is a (rows, 128) plane of the batch;
+// here it is one scalar of one thread's batch element, so the same unrolled
+// algebra runs per thread with all state in registers.
 //
 // Index conventions (as in the JAX package):
 //   A[s, i, j]        -> a[s*4 + i*2 + j]            (8 complex)
@@ -73,8 +73,30 @@ __device__ __forceinline__ void build_AA(const c32 a[8], c32 aa[16]) {
         }
 }
 
-// E[(i j), (k l)] = sum_s AA[s, i, k] conj(AA[s, j, l])   (energy_fused.py::_plane_E)
-__device__ __forceinline__ void build_E(const c32 aa[16], c32 e[16]) {
+// The adjoint of the two-site block AA = A A (build_AA): g pairs with dAA ->
+// out[s, a, b] = sum_{t,j} g[(s t), a, j] A[t, b, j] + sum_{t,i} g[(t s), i, b] A[t, i, a]
+__device__ __forceinline__ void store_aa_adjoint(const c32 g[16], const c32 a[8], float2* out) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        c32 acc = mk(0.f, 0.f);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) cfma(acc, g[(s * 2 + t) * 4 + p * 2 + j], a[t * 4 + c * 2 + j]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) cfma(acc, g[(t * 2 + s) * 4 + i * 2 + c], a[t * 4 + i * 2 + p]);
+        }
+        st(out, s * 4 + p * 2 + c, acc);
+      }
+}
+
+// Mixed transfer matrix E[(i j), (k l)] = sum_s X[s, i, k] conj(Y[s, j, l])
+// of two-site blocks X (ket) and Y (bra)   (tdvp_fused.py::_build_E_planes)
+__device__ __forceinline__ void build_E_mixed(const c32 x[16], const c32 y[16], c32 e[16]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -85,10 +107,13 @@ __device__ __forceinline__ void build_E(const c32 aa[16], c32 e[16]) {
         for (int l = 0; l < 2; ++l) {
           c32 acc = mk(0.f, 0.f);
 #pragma unroll
-          for (int s = 0; s < 4; ++s) cfma(acc, aa[s * 4 + i * 2 + k], conj(aa[s * 4 + j * 2 + l]));
+          for (int s = 0; s < 4; ++s) cfma(acc, x[s * 4 + i * 2 + k], conj(y[s * 4 + j * 2 + l]));
           e[(i * 2 + j) * 4 + k * 2 + l] = acc;
         }
 }
+
+// E[(i j), (k l)] = sum_s AA[s, i, k] conj(AA[s, j, l])   (energy_fused.py::_plane_E)
+__device__ __forceinline__ void build_E(const c32 aa[16], c32 e[16]) { build_E_mixed(aa, aa, e); }
 
 // w = M x for a 4x4 row-major M
 __device__ __forceinline__ void matvec4(const c32 m[16], const c32 x[4], c32 w[4]) {

@@ -1,5 +1,10 @@
-"""Exact-physics oracle: the TFIM ground-state energy per site, in host
-numpy float64 (a copy of ``qmps_tpu.ham.exact.tfim_gs_energy_f64``)."""
+"""Exact-physics oracles in host numpy float64 (copies of
+``qmps_tpu.ham.exact``'s quadratures):
+
+- ``tfim_gs_energy_f64(g)``: the TFIM ground-state energy per site;
+- ``loschmidt_rate(t, g0, g1)``: the exact rate function of a TFIM quench
+  (qmps/exact_loschmidt.py:7-21).
+"""
 from __future__ import annotations
 
 from functools import lru_cache
@@ -23,3 +28,27 @@ def tfim_gs_energy_f64(g) -> np.ndarray:
     g = np.asarray(g, np.float64)[..., None]
     eps = np.sqrt(1.0 + g ** 2 - 2.0 * g * np.cos(k))
     return -(eps * w).sum(-1) / np.pi
+
+
+def _f(z, g0, g1) -> np.ndarray:
+    """The boundary partition-function exponent f(z) of the TFIM quench, on
+    a 4096-node grid: near dynamical phase transitions the integrand has an
+    (integrable) log singularity."""
+    k, w = _gl_nodes(4096)
+
+    def theta(k, g):
+        return np.arctan2(np.sin(k), g - np.cos(k)) / 2
+
+    phi = theta(k, g0) - theta(k, g1)
+    eps = -2 * np.sqrt((g1 - np.cos(k)) ** 2 + np.sin(k) ** 2)
+    integrand = -1 / (2 * np.pi) * np.log(
+        np.cos(phi) ** 2 + np.sin(phi) ** 2 * np.exp(-2 * np.asarray(z)[..., None] * eps)
+    )
+    return (integrand * w).sum(-1)
+
+
+def loschmidt_rate(t, g0, g1) -> np.ndarray:
+    """Exact rate function lambda(t) = f(it) + f(-it) of the Loschmidt echo
+    after a g0 -> g1 quench, for a scalar or an array of times."""
+    t = np.asarray(t, np.complex128)
+    return np.real(_f(1j * t, g0, g1) + _f(-1j * t, g0, g1))

@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at
-first use, into ``qmps_torch/_build/``, under a name keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all at
+once) and linked into one shared library with a plain C interface, loaded
+with ``ctypes``.  The build runs at first use, into ``qmps_torch/_build/``,
+under a name keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads.
 A missing compiler or a failed build raises: there is no silent fallback.
 Each C entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises on a non-zero code.
@@ -24,13 +25,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+#: per-source compile flags (each ``.cu`` is compiled by its own nvcc, all
+#: started together) and the flags of the link into one shared library
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = [*_ARCH, "-shared"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
-launches = {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0}
+launches = {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0, "tdvp_fwd": 0, "tdvp_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +40,8 @@ _SIGNATURES = {
     "qmps_dominant_eig": [_P, _P, _P, _I, _I, _I, _P],
     "qmps_energy_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
     "qmps_energy_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "qmps_tdvp_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "qmps_tdvp_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -68,7 +72,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -85,21 +89,28 @@ def build() -> tuple[Path, str]:
         return out, log.read_text() if log.exists() else ""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(p) for p in _sources() if p.suffix == ".cu")]
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        text = ""
+        for cmd, _, proc in jobs:  # every compile runs to its end before any raise
+            text += proc.communicate()[0]
+        for cmd, _, proc in jobs:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        so = Path(tmp) / "lib.so"
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(so), *(str(obj) for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        text += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        log.write_text(text)
+        os.replace(so, out)  # atomic: a concurrent build never loads a partial file
+    return out, text
 
 
 def lib() -> ctypes.CDLL:

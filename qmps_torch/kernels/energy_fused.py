@@ -133,10 +133,15 @@ def _bwd_plain(As, hs, lam, v, ct):
     AAbar = AAbar + torch.einsum("bijkl,bsjl->bsik", Eb, AAc)
     AAbar = AAbar + torch.einsum("bijkl,bsik->bsjl", Eb, AA).conj()
 
-    # ---- AA build: AA[(s1 s2), i, j] = sum_k A[s1,i,k] A[s2,k,j] ----
-    G = AAbar.reshape(-1, 2, 2, 2, 2)  # (B, s1, s2, i, j)
-    Abar = torch.einsum("zstaj,ztbj->zsab", G, As) + torch.einsum("ztsib,ztia->zsab", G, As)
-    return Abar, hbar
+    return _aa_adjoint(AAbar, As), hbar
+
+
+def _aa_adjoint(G, A):
+    """The adjoint of the two-site block AA[(s1 s2), i, j] = sum_k A[s1,i,k]
+    A[s2,k,j]: G (B, 4, 2, 2) pairs with dAA ->
+    Abar[s,a,b] = sum_{t,j} G[(s t),a,j] A[t,b,j] + sum_{t,i} G[(t s),i,b] A[t,i,a]."""
+    G = G.reshape(-1, 2, 2, 2, 2)  # (B, s1, s2, i, j)
+    return torch.einsum("zstaj,ztbj->zsab", G, A) + torch.einsum("ztsib,ztia->zsab", G, A)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,13 @@ import numpy as np
 import torch
 
 from _torch_parity import assert_parity, left_canonical, tfim_h, to_np
+from qmps_torch.algorithms.ground_state import find_ground_state
+from qmps_torch.circuits.ansatze import shallow_full_state
+from qmps_torch.embed.unitaries import unitary_to_tensor
+from qmps_torch.ham.hamiltonian import tfim
 from qmps_torch.kernels import energy_fused as tef
 from qmps_torch.kernels.pallas_power import _dominant_eig_plain
+from qmps_torch.mps.transfer import right_fixed_point
 from qmps_tpu.kernels.energy_fused import energy_objective_fused as jax_energy
 
 
@@ -92,3 +97,28 @@ def test_trace_gauge_changes_no_value():
     a2, h2 = tef._bwd_plain(At, ht, lam, v * rot, ct)
     np.testing.assert_allclose(to_np(a1), to_np(a2), atol=1e-10)
     np.testing.assert_allclose(to_np(h1), to_np(h2), atol=1e-12)
+
+
+def _e_ref_one(A, h):
+    """The reference composition of test_energy_fused.py:18-23, batched,
+    built from the port's right_fixed_point (its own bordered-solve
+    adjoint: an independent derivation of the gradient)."""
+    AA = torch.einsum("bsik,btkj->bstij", A, A).reshape(-1, 4, 2, 2)
+    _, r = right_fixed_point(AA, AA)
+    r = (r + r.mH) / 2
+    r = r / r.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None]
+    return torch.einsum("bts,bsij,bjk,btik->b", h.to(A.dtype), AA, r, AA.conj()).real
+
+
+def test_near_critical_gradient():
+    """At the port's own L-BFGS ground state of tfim(1) (200 steps: the
+    subdominant transfer eigenvalue near 1), the plain objective's
+    deflated-series gradient against autograd through the reference
+    composition, to 1e-8 (test_energy_fused.py:91-112)."""
+    gs = find_ground_state(tfim(1.0), D=2, ansatz="full15", method="lbfgs", steps=200)
+    As = unitary_to_tensor(shallow_full_state(gs.params))[None]
+    hs = torch.from_numpy(tfim_h([1.0]))
+    A1, A2 = As.clone().requires_grad_(), As.clone().requires_grad_()
+    tef.energy_objective_fused(A1, hs, 48).sum().backward()
+    _e_ref_one(A2, hs).sum().backward()
+    np.testing.assert_allclose(to_np(A1.grad), to_np(A2.grad), atol=1e-8)

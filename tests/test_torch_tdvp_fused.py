@@ -1,0 +1,144 @@
+"""qmps_torch.kernels.tdvp_fused (kernels K4, K5) and the overlap
+objectives against qmps_tpu: the plain forward against the dense
+objective and against the Pallas kernel in interpret mode, the rank-1
+adjoint (torch's .grad against conj(jax.grad)) for a shared and a batched
+gate, gradcheck, and the exact Loschmidt rate.  Mirrors
+tests/test_tdvp_fused.py.
+
+On the CPU the port runs its plain PyTorch versions; the CUDA kernels are
+held against them on the card (test_torch_cuda.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.linalg
+import torch
+
+from _torch_parity import assert_parity, phase_aligned, to_np
+from qmps_torch.ham.exact import loschmidt_rate
+from qmps_torch.kernels import tdvp_fused as ttf
+from qmps_torch.objectives import overlap as tov
+from qmps_tpu.ham import exact as jexact
+from qmps_tpu.kernels.tdvp_fused import tdvp_objective_fused as jax_fused
+from qmps_tpu.objectives.overlap import tdvp_objective as jax_dense
+
+
+def _batch(B, seed):
+    """Random (unnormalized) tensors scaled to Frobenius norm 2, as
+    tests/test_tdvp_fused.py:18-26 makes them."""
+    rng = np.random.default_rng(seed)
+    As, Bs = (rng.standard_normal((B, 2, 2, 2)) + 1j * rng.standard_normal((B, 2, 2, 2)) for _ in range(2))
+    scale = lambda x: x / np.linalg.norm(x.reshape(B, -1), axis=1)[:, None, None, None] * 2
+    return scale(As), scale(Bs)
+
+
+def _W(seed, B=None):
+    """expm(-0.05 i H) of a random real symmetric H: one gate or a batch."""
+    rng = np.random.default_rng(seed)
+    Hs = rng.standard_normal((B or 1, 4, 4))
+    Ws = np.stack([scipy.linalg.expm(-0.05j * (h + h.T)) for h in Hs])
+    return Ws if B else Ws[0]
+
+
+def _jax_dense(As, Bs, W):
+    if W.ndim == 3:
+        return jax.vmap(jax_dense)(As, Bs, W)
+    return jax.vmap(lambda a, b: jax_dense(a, b, W))(As, Bs)
+
+
+@pytest.mark.parametrize("batched_w", [False, True])
+def test_plain_forward_matches_dense_objective(batched_w):
+    """The plain K4 (squaring from the chirps) against vmap(tdvp_objective)
+    (squaring from vec(I)), complex128: 1e-10."""
+    As, Bs = _batch(5, 0)
+    W = _W(1, 5 if batched_w else None)
+    got = ttf.tdvp_objective_fused(*(torch.from_numpy(x) for x in (As, Bs, W)))
+    np.testing.assert_allclose(to_np(got), np.asarray(_jax_dense(As, Bs, W)), atol=1e-10)
+
+
+def test_plain_forward_matches_pallas_interpret():
+    """The JAX kernel in interpret mode (float32 planes, B = 2, 8
+    squarings) against the port's plain version at complex128: 5e-5
+    (test_tdvp_fused.py:37-42)."""
+    As, Bs = _batch(2, 2)
+    W = _W(3)
+    want = jax_fused(jnp.asarray(As), jnp.asarray(Bs), jnp.asarray(W.astype(np.complex64)), 8, True)
+    got = ttf.tdvp_objective_fused(*(torch.from_numpy(x) for x in (As, Bs, W)), iters=48)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), atol=5e-5)
+
+
+@pytest.mark.parametrize("batched_w", [False, True])
+def test_gradients_match_dense_objective(batched_w):
+    """dA, dB and dW of the summed objective, torch's against conj(jax.grad)
+    of the dense objective, complex128: 1e-8; a shared W's gradient is the
+    batch sum."""
+    As, Bs = _batch(3, 4)
+    W = _W(5, 3 if batched_w else None)
+    assert_parity(_jax_dense, ttf.tdvp_objective_fused, (As, Bs, W), atol=1e-10, grad_atol=1e-8)
+
+
+def test_dense_port_matches_dense_objective():
+    """The port's own dense tdvp_objective (the quench's engine="dense")
+    against JAX's, value and gradients, batched W: 1e-10."""
+    As, Bs = _batch(3, 6)
+    assert_parity(_jax_dense, tov.tdvp_objective, (As, Bs, _W(7, 3)), atol=1e-12, grad_atol=1e-10)
+
+
+def test_real_w_takes_the_real_gradient():
+    """A real W gets a real cotangent: the real part of the complex one."""
+    As, Bs = (torch.from_numpy(x) for x in _batch(2, 8))
+    Wr = torch.tensor(np.random.default_rng(9).standard_normal((4, 4)), requires_grad=True)
+    Wc = Wr.detach().to(torch.complex128).requires_grad_()
+    ttf.tdvp_objective_fused(As, Bs, Wr).sum().backward()
+    ttf.tdvp_objective_fused(As, Bs, Wc).sum().backward()
+    assert Wr.grad.dtype == torch.float64
+    np.testing.assert_allclose(to_np(Wr.grad), to_np(Wc.grad).real, atol=1e-12)
+
+
+def test_gradcheck():
+    """The autograd.Function's backward against finite differences at
+    complex128, B = 2, batched W."""
+    As, Bs = _batch(2, 10)
+    args = tuple(torch.tensor(x, requires_grad=True) for x in (As, Bs, _W(11, 2)))
+    assert torch.autograd.gradcheck(ttf.tdvp_objective_fused, args)
+
+
+def test_left_vector_only_when_a_gradient_is_taken():
+    """Without a gradient the forward skips the E^dag solve; with one, w is
+    the left eigenvector (w^dag E = lam w^dag, up to phase)."""
+    As, Bs = (torch.from_numpy(x) for x in _batch(3, 12))
+    W = torch.from_numpy(_W(13))
+    _, _, _, E = ttf._build(As, Bs, W.expand(3, 4, 4))
+    lam, v, w = ttf._fwd_plain(As, Bs, W.expand(3, 4, 4), 48, True)
+    assert ttf._fwd_plain(As, Bs, W.expand(3, 4, 4), 48, False)[2] is None
+    np.testing.assert_allclose(to_np((w.conj()[:, None, :] @ E)[:, 0]), to_np(lam[:, None] * w.conj()), atol=1e-12)
+    lv, V = np.linalg.eig(to_np(E))
+    k = np.argmax(np.abs(lv), axis=1)
+    v_np = np.stack([V[b, :, k[b]] for b in range(3)])
+    np.testing.assert_allclose(phase_aligned(to_np(v), v_np), v_np, atol=1e-12)
+
+
+def test_pallas_dispatch_shape_checks():
+    """tdvp_objective_pallas: the JAX package's shape errors
+    (test_evolve.py:65-80), and D > 2 waits for K7/K8."""
+    A = torch.zeros(1, 2, 4, 4, dtype=torch.complex128)
+    with pytest.raises(ValueError, match="4, 4"):
+        tov.tdvp_objective_pallas(A, A, torch.eye(16), iters=2)
+    with pytest.raises(ValueError, match="batched"):
+        tov.tdvp_objective_pallas(A[0], A[0], torch.eye(4), iters=2)
+    with pytest.raises(NotImplementedError, match="K7"):
+        tov.tdvp_objective_pallas(A, A, torch.eye(4), iters=2)
+    As, Bs = (torch.from_numpy(x) for x in _batch(2, 14))
+    W = torch.from_numpy(_W(15))
+    np.testing.assert_array_equal(to_np(tov.tdvp_objective_pallas(As, Bs, W, 48)),
+                                  to_np(ttf.tdvp_objective_fused(As, Bs, W, 48)))
+
+
+def test_loschmidt_rate_matches_jax():
+    for g0, g1 in ((1.5, 0.2), (0.5, 1.8)):
+        for t in (0.05, 0.6, 1.7):
+            np.testing.assert_allclose(loschmidt_rate(t, g0, g1), float(jexact.loschmidt_rate(t, g0, g1)),
+                                       atol=1e-10)
+    t = np.linspace(0.0, 1.0, 5)
+    np.testing.assert_allclose(loschmidt_rate(t, 1.5, 0.2), [loschmidt_rate(x, 1.5, 0.2) for x in t], atol=1e-15)
