@@ -27,10 +27,33 @@ Phases (any failure exits non-zero, and nothing is caught):
      family 1.5 -> 64 couplings in [0.1, 0.4] (dt 0.02, 30 outer steps of
      80 adam steps, engine="pallas"), timed, against the exact Loschmidt
      rate, and the launch counters show that K4 and K5 carried every inner
-     step.
+     step;
+  8. brickwork overlap (K6): (a) bench.py's inputs at its size (65,536;
+     seeded QR unitaries, Ml = M^dag, one random 16x16 W), (b) config 5's
+     own inputs (16,384), the tensors phase 9 times, and (c) real brickwork
+     TDVP inputs at 65,536 (candidate points near the brickwork ground
+     state of tfim(1.5), each with the exact right environment of its pair,
+     W the quench window gate); every element against the plain version at
+     complex128 to 1e-5; kernel, plain version and one batched torch.einsum
+     of the 13 operands timed at 65,536;
+  9. main path, config 5: BrickworkConfig().run() (16,384 x 30), both rates,
+     the launch counter showing that K6 carried the fused row;
+ 10. the brickwork family in float32 (``brickwork_family``, which
+     tests/test_torch_brickwork.py also runs in float32 on the CPU): the
+     Loschmidt pipeline from the ground state of phase 8 (12 steps of 120
+     inner steps) against the exact rate, and the warm start (the "suN"
+     ground state, compiled into bricks, evolved 12 steps of 200 inner
+     steps) against the exact rate, each path timed.
+Each kernel's entry in the JSON line has its bound: the larger of its
+float32 operations over 67 TFLOP/s and its bytes (each input read once,
+each output written once) over 3.35 TB/s, the published H100 SXM peaks
+(``kernel_work``).  K1-K5's operations are those of their solves'
+algorithms; K6's those of the cheapest pairwise contraction order of its
+network (``cheapest_contraction``), fewer than the kernel does.
 Prints one JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
+import functools
 import json
 import subprocess
 import sys
@@ -45,13 +68,104 @@ K1_BATCH, K1_ITERS = 65536, 40
 # (dt 0.02, bench.py:545-556), cut to 30 of 300 outer steps (t_max 0.6)
 G0, N_G1, G1_MIN, G1_MAX, DT, QUENCH_STEPS, INNER, QUENCH_LR = 1.5, 64, 0.1, 0.4, 0.02, 30, 80, 3e-2
 GS_STEPS, TDVP_ITERS, TDVP_BATCH = 300, 48, 65536
+# the brickwork family (tests/test_brickwork.py:109-129, 171-205)
+BW_BATCH, BW_G0, BW_G1 = 65536, 1.5, 0.2
+
+# published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
+# tensor cores, device memory
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+CMAC, CMUL = 8, 6  # real flops of a complex multiply-add (4 FMAs) and of a product
 
 
-def cuda_ms(fn, reps):
+def solve_flops(iters):
+    """planes.cuh::solve4 by squaring: per squaring a 4x4 complex product
+    (64 multiply-adds) and the normalisation of its 16 entries (6 flops
+    each); then three matvecs, the Rayleigh quotient and two norms."""
+    return iters * (64 * CMAC + 16 * 6) + 52 * CMAC + 56
+
+
+# K6's network per element: 13 operands over 2-dim indices, the U2 columns
+# (c2) and U2'^dag rows (r2) already read at |00> (circuits/brickwork.
+# manifold_overlap), listed in an order that keeps every intermediate at 64
+# entries an element if torch.einsum contracts them left to right
+K6_NETWORK = (("c2", (12, 13)), ("U1", (18, 19, 13, 14)), ("c2", (14, 15)), ("U1", (20, 21, 15, 16)),
+              ("c2", (16, 17)), ("Ml", (26, 12)), ("Mr", (31, 17)), ("W", (22, 23, 24, 25, 18, 19, 20, 21)),
+              ("U1d", (27, 28, 22, 23)), ("r2", (26, 27)), ("U1d", (29, 30, 24, 25)), ("r2", (28, 29)),
+              ("r2", (30, 31)))
+
+
+@functools.lru_cache(maxsize=None)
+def cheapest_contraction(network):
+    """(complex multiply-adds, complex products) of the cheapest pairwise
+    contraction order of a closed network whose indices are all 2-dim and
+    each on two operands: dynamic programming over subsets of operands.  A
+    pair that shares an index costs one multiply-add per term of the union
+    of their open indices, an outer product one product per entry."""
+    ids = sorted({i for _, idx in network for i in idx})
+    masks = [sum(1 << ids.index(i) for i in idx) for _, idx in network]
+    n = len(masks)
+    full = (1 << n) - 1
+    inside = [0] * (full + 1)
+    for S in range(1, full + 1):
+        low = S & -S
+        inside[S] = inside[S ^ low] | masks[low.bit_length() - 1]
+    best = {1 << i: (0, 0, 0) for i in range(n)}  # (flops, multiply-adds, products)
+    for S in sorted(range(1, full + 1), key=lambda x: bin(x).count("1")):
+        if S in best:
+            continue
+        cands, A = [], (S - 1) & S
+        while A:
+            B = S ^ A
+            if A < B:
+                oa, ob = inside[A] & inside[full ^ A], inside[B] & inside[full ^ B]
+                terms, mac = 1 << bin(oa | ob).count("1"), bool(oa & ob)
+                (fa, ma, pa), (fb, mb, pb) = best[A], best[B]
+                cands.append((fa + fb + (CMAC if mac else CMUL) * terms, ma + mb + mac * terms,
+                              pa + pb + (not mac) * terms))
+            A = (A - 1) & S
+        best[S] = min(cands)
+    return best[full][1:]
+
+
+def kernel_work(name, B, w_bytes=0):
+    """(flops, bytes) of one launch over B elements: a complex multiply-add
+    is 8 flops, a product 6; each input byte read once and each output byte
+    written once (``w_bytes``: a W read once per launch or per element).
+    K1-K5 count their solves as written; K6 the cheapest contraction of its
+    network (1,444 multiply-adds: Ml and Mr fold into the outer c2 and r2
+    first, and W's 1,024 dominate), not the 2,240 multiply-adds and 384
+    products of the kernel as written."""
+    k6 = cheapest_contraction(K6_NETWORK)
+    aa, e = 16 * (CMUL + CMAC), 64 * CMAC  # build_AA, build_E
+    flops, nbytes = {
+        "K1": (solve_flops(K1_ITERS), 128 + 8 + 32),
+        "K2": (2 * aa + e + solve_flops(48) + 64 * CMAC + 124, 64 + 128 + 4 + 8 + 32),
+        # before the series ~3,660, the series 24 x 80 multiply-adds, after it ~4,730
+        "K3": (3656 + 24 * 80 * CMAC + 4732, 64 + 128 + 32 + 8 + 4 + 64 + 128),
+        # the two AA builds, WAA, E, and the right and left solves
+        "K4": (2 * aa + 2 * e + 2 * solve_flops(TDVP_ITERS), 64 + 64 + 8 + 32 + 32),
+        # the two AA builds, WAA, P and C (96 multiply-adds each), Wbar and
+        # Q (64 each), the two AA-build adjoints (64 each), the coefficient
+        "K5": (2 * aa + e + 2 * 96 * CMAC + 4 * 64 * CMAC + 60,
+               64 + 64 + 32 + 32 + 8 + 4 + 64 + 64 + 128),
+        "K6": (CMAC * k6[0] + CMUL * k6[1], 128 + 128 + 32 + 32 + 32 + 32 + 8),
+    }[name]
+    return flops * B, nbytes * B + w_bytes
+
+
+def bound(flops, nbytes):
+    """(bound_ms, what sets it): the larger of operations over the float32
+    peak and bytes over the memory rate."""
+    t_ops, t_mem = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def cuda_ms(fn, reps, warm_up=True):
     """Mean time of fn over reps calls on the card's timeline, by CUDA
     events after one warm-up call (for a plain version made of many small
     launches this includes the gaps the host leaves between them)."""
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -140,6 +254,103 @@ def tdvp_check(tdf, tag, A, B, W, gate):
     return err_lam, absmax
 
 
+def eig_dominant(E):
+    """The library yardstick of K1: torch.linalg.eig of every matrix and
+    the eigenpair of largest |lam|."""
+    w, V = torch.linalg.eig(E)
+    i = w.abs().argmax(-1)
+    return w.gather(-1, i[:, None])[:, 0], V.gather(-1, i[:, None, None].expand(-1, V.shape[1], 1))[..., 0]
+
+
+def overlap_einsum(U1, U2, U1p, U2p, Mr, Ml, W):
+    """The library yardstick of K6: one batched torch.einsum of the 13
+    operands of ``K6_NETWORK``."""
+    t = lambda U: U.reshape(-1, 2, 2, 2, 2)
+    ops = {"c2": t(U2)[..., 0, 0], "r2": t(U2p).conj()[..., 0, 0],  # row 0 of U2'^dag: [in1, in2]
+           "U1": t(U1), "U1d": t(U1p.mH), "Ml": Ml, "Mr": Mr, "W": W.reshape((2,) * 8)}
+    b, args = 40, []
+    for name, idx in K6_NETWORK:
+        args += [ops[name], list(idx) if name == "W" else [b, *idx]]
+    return torch.einsum(*args, [b])
+
+
+def tdvp_overlap_inputs(rng, p_gs, W, dev):
+    """65,536 brickwork TDVP candidates: current points p = p_gs + 0.02 noise
+    near the ground state, candidates p' = p + 0.05 noise; their bricks, the
+    exact right environment Mr of each pair (U, U'^dag) and Ml = Mr^dag,
+    built in float64 on the card and rounded to complex64, and W."""
+    from qmps_torch.circuits import brickwork as bw
+
+    p_gs = p_gs.double().cpu().numpy()
+    p = p_gs + 0.02 * rng.standard_normal((BW_BATCH, 22))
+    pn = p + 0.05 * rng.standard_normal((BW_BATCH, 22))
+    with torch.no_grad():
+        U1, U2 = bw.param_bricks(torch.from_numpy(p).to(dev))
+        U1p, U2p = bw.param_bricks(torch.from_numpy(pn).to(dev))
+        _, Mr = bw.exact_right_env(U1, U2, U1p.mH, U2p.mH)
+    c64 = torch.complex64
+    out = [t.to(c64).contiguous() for t in (U1, U2, U1p, U2p, Mr, Mr.mH.resolve_conj())]
+    return (*out, torch.from_numpy(W).to(dev, c64))
+
+
+def brickwork_family(p_gs):
+    """Phase 10, where p_gs is and in its precision: the brickwork
+    Loschmidt pipeline from the brickwork ground state p_gs (22,) of
+    tfim(1.5), quenched to tfim(0.2) (12 steps of dt 0.05, 120 inner
+    steps), within 0.05 of the exact rate (tests/test_brickwork.py:109-129);
+    the warm start, the "suN" ground state from find_ground_state's default
+    start (400 L-BFGS steps) compiled into bricks (overlap > 0.99) and
+    evolved 12 steps of dt 0.025 (200 inner steps at lr 5e-2), within 1e-2
+    of the exact rate (:171-205).  Each path timed; returns the figures."""
+    from qmps_torch.algorithms import brickwork_tdvp as bwt
+    from qmps_torch.algorithms.ground_state import find_ground_state
+    from qmps_torch.ham.exact import loschmidt_rate, tfim_gs_energy_f64
+    from qmps_torch.ham.hamiltonian import tfim
+    from qmps_torch.mps.imps import iMPS
+
+    sync = torch.cuda.synchronize if p_gs.is_cuda else (lambda: None)
+
+    def rates(les):
+        return -np.log(les.double().cpu().numpy()) / 2, les.dtype  # per site (cell = 2 sites)
+
+    t0 = time.perf_counter()
+    les, _, _ = bwt.loschmidt_echo_brickwork(p_gs, bwt.quench_window_gate(tfim(BW_G1).to_matrix(), 0.05), 12, 120)
+    sync()
+    t_los = time.perf_counter() - t0
+    rates_l, dtype_l = rates(les)
+    err_l = np.abs(rates_l - loschmidt_rate(np.arange(1, 13) * 0.05, BW_G0, BW_G1)).max()
+    print(f"brickwork Loschmidt ({BW_G0} -> {BW_G1}, dt 0.05, 12 x 120 inner, {dtype_l}, {t_los:.3f} s): "
+          f"max |rate - exact| {err_l:.4g} (< 0.05)")
+    require(dtype_l == p_gs.real.dtype and np.all(np.isfinite(rates_l)) and rates_l[-1] > rates_l[0]
+            and err_l < 0.05, "brickwork Loschmidt rate against exact")
+
+    t0 = time.perf_counter()
+    start = torch.randn(15, generator=torch.Generator().manual_seed(0), dtype=torch.float64) * 0.5
+    gs = find_ground_state(tfim(BW_G0), D=2, steps=400, initial_guess=start.to(p_gs))  # "suN"
+    p_ws, ov_ws = bwt.compile_tensor_to_bricks(gs.A)
+    sync()
+    t_compile = time.perf_counter() - t0
+    err_gs = gs.energy - float(tfim_gs_energy_f64(BW_G0))
+    t0 = time.perf_counter()
+    traj, _ = bwt.BrickworkEvolver(bwt.quench_window_gate(tfim(BW_G1).to_matrix(), 0.025), inner_steps=200,
+                                   lr=5e-2).time_evolve(p_ws, 12)
+    sync()
+    t_ws = time.perf_counter() - t0
+    with torch.no_grad():
+        psi0 = iMPS([bwt._blocked(traj[0])])
+        rates_w, dtype_w = rates(torch.stack([iMPS([bwt._blocked(q)]).overlap(psi0) for q in traj[1:]]))
+    err_w = np.abs(rates_w - loschmidt_rate(np.arange(1, 13) * 0.025, BW_G0, BW_G1)).max()
+    print(f"warm start: suN ground state (error {err_gs:.4g}) + compile in {t_compile:.3f} s, overlap "
+          f"{float(ov_ws):.6f} (> 0.99); evolver 12 x 200 inner ({dtype_w}) in {t_ws:.3f} s, "
+          f"max |rate - exact| {err_w:.4g} (< 1e-2)")
+    require(float(ov_ws) > 0.99, "warm-start compile overlap")
+    require(dtype_w == p_gs.real.dtype and np.all(np.isfinite(rates_w)) and rates_w[-1] > rates_w[0]
+            and err_w < 1e-2, "warm-start rate against exact")
+    return {"loschmidt_max_rate_error": float(err_l), "loschmidt_seconds": t_los,
+            "suN_ground_state_error": err_gs, "warm_start_overlap": float(ov_ws),
+            "warm_start_max_rate_error": float(err_w), "warm_start_seconds": t_compile + t_ws}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -156,6 +367,10 @@ def main() -> int:
     from qmps_torch.objectives.energy import energy_exact_env
     from qmps_torch.kernels.pallas_power import _dominant_eig_plain, dominant_eig_batched
     from qmps_torch.parallel.sweep import _fused_sweep_programs, sweep_ground_states_fused, tfim_matrix
+    from qmps_torch.algorithms import brickwork_tdvp as bwt
+    from qmps_torch.kernels import brickwork_pallas as k6
+    from qmps_torch.kernels.brickwork_fast import manifold_overlap_batched
+    from qmps_torch.workloads import BrickworkConfig
 
     dev = torch.device("cuda")
     c64, c128 = torch.complex64, torch.complex128
@@ -199,7 +414,10 @@ def main() -> int:
         ms=cuda_ms(lambda: lib.qmps_dominant_eig(
             E.data_ptr(), lam_o.data_ptr(), v_o.data_ptr(), K1_BATCH, K1_ITERS, 0, stream), 50),
         plain_ms=cuda_ms(lambda: _dominant_eig_plain(E, iters=K1_ITERS), 5),
+        # one call, not warmed: eig on CUDA tensors computes on the host (~30 s)
+        library_ms=cuda_ms(lambda: eig_dominant(E), 1, warm_up=False),
     )
+    results["K1"].update(zip(("bound_ms", "bound_by"), bound(*kernel_work("K1", K1_BATCH))))
     require(torch.equal(lam_o, lam) and torch.equal(v_o, v), "K1 timed launches reproduce its output")
 
     # ---- 4. energy: K2, K3 on the sweep's first-step batch ----
@@ -250,13 +468,17 @@ def main() -> int:
     )
     require(torch.equal(e_o, e) and torch.equal(v_o, v) and torch.equal(Abar_o, Abar)
             and torch.equal(hbar_o, hbar), "K2, K3 timed launches reproduce their outputs")
+    # no single PyTorch call computes the energy objective or its adjoint
+    for k in ("K2", "K3"):
+        results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, B))), library_ms=None)
 
     # ---- 5. main path, optimize: config-4 sweep, then represent its states ----
     def main_path():
         """The sweep (timed) and the represent step on its states."""
         t0 = time.perf_counter()
+        # host floats and no device: the entry point's default is the card
         es, As = sweep_ground_states_fused(
-            gs, steps=STEPS, lr=LR, momentum=MOMENTUM, restarts=RESTARTS
+            g64, steps=STEPS, lr=LR, momentum=MOMENTUM, restarts=RESTARTS
         )
         torch.cuda.synchronize()
         t_sweep = time.perf_counter() - t0
@@ -271,7 +493,7 @@ def main() -> int:
     print(f"sweep: {N_POINTS} points x {STEPS} steps x {RESTARTS} restarts in {dt:.4f} s, "
           f"{N_POINTS / dt:.1f} points/s on {card}; launches {launches}")
     require(launches == {"dominant_eig": 1, "energy_fwd": STEPS + 1, "energy_bwd": STEPS,
-                         "tdvp_fwd": 0, "tdvp_bwd": 0},
+                         "tdvp_fwd": 0, "tdvp_bwd": 0, "brickwork_overlap": 0},
             f"launch counts of the main path {launches}")
 
     A_host = isometry_f64(As.cpu().numpy().astype(np.complex128))
@@ -283,8 +505,8 @@ def main() -> int:
     print(f"sweep vs exact (float64 readout): median {np.median(err):.4g} (< 5e-4), "
           f"max {err.max():.4g} (< 5e-3), min {err.min():.4g} (> -1e-9); "
           f"|device f32 energy - readout| max {err_dev:.3g}; represent ||lam|-1| {unit:.3g}")
-    require(np.all(np.isfinite(err)) and es.shape == (N_POINTS,) and As.shape == (N_POINTS, 2, 2, 2),
-            "finite sweep output of the expected shapes")
+    require(np.all(np.isfinite(err)) and es.shape == (N_POINTS,) and As.shape == (N_POINTS, 2, 2, 2)
+            and es.is_cuda and As.is_cuda, "finite sweep output of the expected shapes, on the card")
     require(np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-9, "sweep against exact")
     require(unit < 1e-5, "represent step: |lam| = 1")
 
@@ -323,16 +545,22 @@ def main() -> int:
     require(torch.equal(lam_o, lam6) and torch.equal(v_o, v6) and torch.equal(w_o, w6)
             and all(torch.equal(a, b) for a, b in zip(bars_o, bars6)),
             "K4, K5 timed launches reproduce their outputs")
-    results["K4"] = dict(ms=ms4, plain_ms=cuda_ms(lambda: tdf._fwd_plain(A6, B6, W6, TDVP_ITERS, True), 5))
+    # no single PyTorch call computes the TDVP objective or its adjoint
+    results["K4"] = dict(ms=ms4, plain_ms=cuda_ms(lambda: tdf._fwd_plain(A6, B6, W6, TDVP_ITERS, True), 5),
+                         library_ms=None)
     results["K5"] = dict(ms=ms5, plain_ms=cuda_ms(
-        lambda: tdf._bwd_plain(A6, B6, W6, lam6, v6, w6, ct6), 5))
+        lambda: tdf._bwd_plain(A6, B6, W6, lam6, v6, w6, ct6), 5), library_ms=None)
+    for k in ("K4", "K5"):
+        results[k].update(zip(("bound_ms", "bound_by"),
+                              bound(*kernel_work(k, TDVP_BATCH, w_bytes=128 * TDVP_BATCH))))
     print(f"TDVP kernel times ({TDVP_BATCH}, batched W): K4 {ms4:.5f} ms (plain "
           f"{results['K4']['plain_ms']:.4f} ms), K5 {ms5:.5f} ms (plain {results['K5']['plain_ms']:.4f} ms)")
 
     # ---- 7. main path, evolve: ground state, then the quench family ----
     t0 = time.perf_counter()
-    gs = find_ground_state(tfim(G0), D=2, ansatz="full15", method="lbfgs", steps=GS_STEPS, device=dev)
+    gs = find_ground_state(tfim(G0), D=2, ansatz="full15", method="lbfgs", steps=GS_STEPS)
     t_gs = time.perf_counter() - t0
+    require(gs.params.is_cuda and gs.params.dtype == torch.float32, "the ground state ran on the card")
     e_gs = float(energy_exact_env(shallow_full_state(gs.params.cpu().double()), tfim(G0).to_matrix()))
     err_gs = e_gs - float(tfim_gs_energy_f64(G0))
     print(f"ground state of tfim({G0}) ({GS_STEPS} L-BFGS steps, {t_gs:.3f} s): float64 readout "
@@ -340,12 +568,11 @@ def main() -> int:
     require(-1e-9 < err_gs < 5e-4, "ground state against exact")
 
     g1_host = np.linspace(G1_MIN, G1_MAX, N_G1)
-    g1s = torch.from_numpy(g1_host).to(dev)
 
     def quench(n_steps):
         return batched_quench_sweep(
-            G0, g1s, t_max=n_steps * DT, n_steps=n_steps, inner_steps=INNER, lr=QUENCH_LR,
-            params0=gs.params, engine="pallas", pallas_iters=TDVP_ITERS, device=dev,
+            G0, g1_host, t_max=n_steps * DT, n_steps=n_steps, inner_steps=INNER, lr=QUENCH_LR,
+            params0=gs.params, engine="pallas", pallas_iters=TDVP_ITERS,
         )
 
     # warm-up, capturing the main path's first K4 inputs on the way
@@ -379,8 +606,9 @@ def main() -> int:
           f"{n_inner / t_q:.1f} inner steps/s, {N_G1 * QUENCH_STEPS / t_q:.1f} trajectory-steps/s "
           f"on {card}; launches {launches_q}")
     require(launches_q == {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0,
-                           "tdvp_fwd": n_inner, "tdvp_bwd": n_inner},
+                           "tdvp_fwd": n_inner, "tdvp_bwd": n_inner, "brickwork_overlap": 0},
             f"launch counts of the quench {launches_q}")
+    require(les.is_cuda, "the quench ran on the card")
     les64 = les.double().cpu().numpy()
     t64 = np.arange(1, QUENCH_STEPS + 1) * (QUENCH_STEPS * DT / QUENCH_STEPS)
     require(les64.shape == (N_G1, QUENCH_STEPS) and np.all(np.isfinite(les64))
@@ -392,15 +620,85 @@ def main() -> int:
           f"max {rate_err[:, -1].max():.4g}; overlaps in [{les64.min():.6f}, {les64.max():.6f}]")
     require(rate_err.max() < 0.02, "quench against the exact rate")
 
+    # ---- 8. brickwork overlap: K6 at 65,536 ----
+    h15 = tfim(BW_G0).to_matrix()
+    W_bw = bwt.quench_window_gate(tfim(BW_G1).to_matrix(), 0.05)
+    t0 = time.perf_counter()
+    bw_gs = bwt.optimize_brickwork(h15, 400)
+    t_bw_gs = time.perf_counter() - t0
+    print(f"brickwork ground state of tfim({BW_G0}) (400 L-BFGS steps, float32 on the card): "
+          f"windowed energy {bw_gs.fun:.6f} in {t_bw_gs:.3f} s")
+    rng = np.random.default_rng(8)
+    # bench.py:81-92's inputs are config 5's at 65,536 (the same seeded QR
+    # unitaries, Ml = M^dag, one random 16x16 W); config 5's own are those
+    # of phase 9's run
+    sets = {"bench.py's random inputs": BrickworkConfig(batch=BW_BATCH).inputs(),
+            "config 5's inputs": BrickworkConfig().inputs(),
+            "brickwork TDVP inputs": tdvp_overlap_inputs(rng, bw_gs.x, W_bw, dev)}
+    err6 = 0.0
+    for tag, args in sets.items():
+        n = args[0].shape[0]
+        out = k6.manifold_overlap_pallas(*args)
+        ref = manifold_overlap_batched(*(t.to(c128) for t in args))
+        d = (out.to(c128) - ref).abs()
+        print(f"K6 {tag} ({n}): max |d overlap| {d.max().item():.3g} (tol 1e-5 on every element), "
+              f"elements over: {int((d > 1e-5).sum())}; |overlap| in [{ref.abs().min().item():.4f}, "
+              f"{ref.abs().max().item():.4f}]")
+        require(out.shape == (n,) and bool(torch.isfinite(out).all()) and d.max().item() <= 1e-5,
+                f"K6 against its plain version ({tag})")
+        err6 = max(err6, d.max().item())
+    # kernel time: raw launches into a preallocated output on bench.py's
+    # inputs, checked against the wrapper's output
+    U1, U2, U1p, U2p, Mr, Ml, W = sets["bench.py's random inputs"]
+    c2, r2 = U2[:, :, 0].contiguous(), U2p[:, :, 0].conj().resolve_conj().contiguous()
+    out_o = torch.empty(BW_BATCH, dtype=c64, device=dev)
+    ms6 = cuda_ms(lambda: lib.qmps_brickwork_overlap(
+        U1.data_ptr(), c2.data_ptr(), U1p.data_ptr(), r2.data_ptr(), Ml.data_ptr(), Mr.data_ptr(),
+        W.data_ptr(), out_o.data_ptr(), BW_BATCH, stream), 50)
+    require(torch.equal(out_o, k6.manifold_overlap_pallas(U1, U2, U1p, U2p, Mr, Ml, W)),
+            "K6 timed launches reproduce its output")
+    args6 = (U1, U2, U1p, U2p, Mr, Ml, W)
+    results["K6"] = dict(max_abs_err=err6, ms=ms6, plain_ms=cuda_ms(lambda: manifold_overlap_batched(*args6), 5),
+                         library_ms=cuda_ms(lambda: overlap_einsum(*args6), 5))
+    results["K6"].update(zip(("bound_ms", "bound_by"), bound(*kernel_work("K6", BW_BATCH, w_bytes=2048))))
+    print(f"K6 times ({BW_BATCH}): kernel {ms6:.5f} ms, plain {results['K6']['plain_ms']:.4f} ms, "
+          f"one torch.einsum {results['K6']['library_ms']:.4f} ms, bound {results['K6']['bound_ms']:.5f} ms "
+          f"({results['K6']['bound_by']})")
+
+    # ---- 9. main path, config 5: the brickwork overlap throughput ----
+    cfg5 = BrickworkConfig()
+    _lib.reset_launches()
+    m5 = cfg5.run()
+    torch.cuda.synchronize()
+    launches_5 = dict(_lib.launches)
+    print(f"config 5 ({cfg5.batch} x {cfg5.iters}): flat form {m5['overlap_evals_per_sec']:.4g} evals/s, "
+          f"fused K6 {m5['overlap_evals_per_sec_fused']:.4g} evals/s (the headline), flat vs fused "
+          f"|d| {m5['max_abs_diff']:.3g} (< 1e-5) on {m5['device']}; launches {launches_5}")
+    require(launches_5 == {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0, "tdvp_fwd": 0,
+                           "tdvp_bwd": 0, "brickwork_overlap": 4 * cfg5.iters + 2},
+            f"launch counts of config 5 {launches_5}")
+
+    # ---- 10. the brickwork family on the card (float32) ----
+    _lib.reset_launches()
+    fam = brickwork_family(bw_gs.x)
+    launches_10 = dict(_lib.launches)
+    print(f"brickwork family launches {launches_10}; the Loschmidt path with its ground state "
+          f"{fam['loschmidt_seconds'] + t_bw_gs:.3f} s")
+    # the brickwork algorithms reach no kernel (nor do the JAX package's)
+    require(not any(launches_10.values()), f"launch counts of the brickwork family {launches_10}")
+
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
         "K2": ("energy_fwd", "qmps_torch/csrc/energy_fused.cu", "qmps_tpu/kernels/energy_fused.py:271"),
         "K3": ("energy_bwd", "qmps_torch/csrc/energy_fused.cu", "qmps_tpu/kernels/energy_fused.py:303"),
         "K4": ("tdvp_fwd", "qmps_torch/csrc/tdvp_fused.cu", "qmps_tpu/kernels/tdvp_fused.py:121"),
         "K5": ("tdvp_bwd", "qmps_torch/csrc/tdvp_fused.cu", "qmps_tpu/kernels/tdvp_fused.py:247"),
+        "K6": ("brickwork_overlap", "qmps_torch/csrc/brickwork_overlap.cu",
+               "qmps_tpu/kernels/brickwork_pallas.py:34"),
     }
-    # each kernel's launches in the run of its own main path (phase 5 or 7)
-    all_launches = {**launches, "tdvp_fwd": launches_q["tdvp_fwd"], "tdvp_bwd": launches_q["tdvp_bwd"]}
+    # each kernel's launches in the run of its own main path (phase 5, 7 or 9)
+    all_launches = {**launches, "tdvp_fwd": launches_q["tdvp_fwd"], "tdvp_bwd": launches_q["tdvp_bwd"],
+                    "brickwork_overlap": launches_5["brickwork_overlap"]}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": all_launches[name], **results[k]}
@@ -411,7 +709,10 @@ def main() -> int:
                       "min_error": float(err.min()), "gs_energy_error": err_gs,
                       "quench_seconds": t_q, "inner_steps_per_second": n_inner / t_q,
                       "trajectory_steps_per_second": N_G1 * QUENCH_STEPS / t_q,
-                      "quench_max_rate_error": float(rate_err.max())}))
+                      "quench_max_rate_error": float(rate_err.max()),
+                      "overlap_evals_per_sec": m5["overlap_evals_per_sec"],
+                      "overlap_evals_per_sec_fused": m5["overlap_evals_per_sec_fused"],
+                      **{f"brickwork_{k}": v for k, v in fam.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

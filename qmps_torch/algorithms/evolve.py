@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..circuits import ansatze
-from ..config import default_dtypes
+from ..config import default_dtypes, resolve_device
 from ..embed.unitaries import unitary_to_tensor
 from ..ham.hamiltonian import tfim
 from ..mps.transfer import right_fixed_point
@@ -58,16 +58,14 @@ def batched_quench_sweep(
 
     ``params0`` (15,) is the initial state's parameters; without it the
     ground state of tfim(g0) is found first (L-BFGS, ``gs_steps``,
-    ``generator``).  ``device`` defaults to g1s's (CPU for a non-tensor):
-    float64 on the CPU, float32 on CUDA.
+    ``generator``).  ``device`` defaults to g1s's for a tensor, else to the
+    card (``config.resolve_device``): float64 on the CPU, float32 on CUDA.
 
     Returns (times (n_steps,), loschmidt (len(g1s), n_steps)).
     """
     if engine not in ("dense", "pallas"):
         raise ValueError(f"engine must be 'dense' or 'pallas', got {engine!r}")
-    if device is None:
-        device = g1s.device if isinstance(g1s, torch.Tensor) else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device, g1s)
     cdtype, rdtype = default_dtypes(device)
     g1s = torch.as_tensor(g1s).to(device, rdtype)
     if params0 is None:

@@ -1,11 +1,11 @@
 """Variational ground-state search (counterpart of
 ``qmps_tpu.algorithms.ground_state``).
 
-Ported: ``find_ground_state`` for the "full15" D = 2 ansatz with the adam
-and L-BFGS optimizers; the energy is ``energy_exact_env``.  The other
-ansatze ("suN" and "su4" need core/lie, ROADMAP.md item 2; the shallow
-circuits item 9), the rotosolve and scipy methods (item 19) and the
-reference-named optimizer classes wait.
+Ported: ``find_ground_state`` for the "suN" (any D), "su4" and "full15"
+(D = 2) ansatze with the adam and L-BFGS optimizers; the energy is
+``energy_exact_env``.  The shallow circuit ansatze (ROADMAP.md item 9),
+the rotosolve and scipy methods (item 19) and the reference-named
+optimizer classes wait.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from ..circuits import ansatze
-from ..config import default_dtypes
+from ..config import default_dtypes, resolve_device
 from ..embed.unitaries import unitary_to_tensor
 from ..ham.hamiltonian import as_host_matrix
 from ..objectives.energy import energy_exact_env
@@ -29,6 +29,26 @@ class GroundStateResult:
     history: Optional[torch.Tensor]
     U: torch.Tensor
     A: torch.Tensor
+
+
+#: the JAX package's shallow circuit ansatze, not ported yet (item 9)
+_UNPORTED = ("qaoa", "cnot", "cnot3", "cnot_nonuniform", "exact_after_4")
+
+
+def _ansatz_builder(ansatz: str, D: int):
+    """params -> (..., 2D, 2D) state unitary (ground_state.py:38-45)."""
+    if ansatz == "suN":
+        return lambda p: ansatze.full_state_suN(p, D)
+    if ansatz in ("full15", "su4"):
+        if D != 2:
+            raise ValueError(f"the {ansatz!r} ansatz is a D = 2 state gate, got D = {D}")
+        return ansatze.shallow_full_state if ansatz == "full15" else ansatze.full_state_su4
+    if ansatz in _UNPORTED:
+        raise NotImplementedError(
+            f"ansatz {ansatz!r} is not ported: the shallow circuit ansatze wait "
+            "(ROADMAP.md, item 9); use 'suN', 'su4' or 'full15'"
+        )
+    raise ValueError(f"unknown ansatz {ansatz!r}")
 
 
 def n_params(ansatz: str, D: int, depth: int = 2) -> int:
@@ -59,26 +79,19 @@ def find_ground_state(
 
     H is a Hamiltonian or a dense 4x4 matrix.  ``generator`` draws the
     initial guess, normal * 0.5 (a CPU generator, seed 0 if None);
-    ``device`` defaults to the guess's (CPU without one).  The CPU runs in
-    float64, CUDA in float32.  adam decays its rate from 1e-2 as the JAX
-    package's does.
+    ``device`` defaults to the guess's for a tensor, else to the card
+    (``config.resolve_device``).  A tensor guess sets the precision;
+    otherwise the CPU runs in float64, CUDA in float32.  adam decays its
+    rate from 1e-2 as the JAX package's does.
     """
-    if ansatz != "full15":
-        raise NotImplementedError(
-            f"ansatz {ansatz!r} is not ported: 'suN'/'su4' need core/lie (ROADMAP.md, "
-            "item 2), the shallow circuit ansatze wait for item 9; use 'full15'"
-        )
-    if D != 2:
-        raise ValueError(f"the 'full15' ansatz is a D = 2 state gate, got D = {D}")
+    build = _ansatz_builder(ansatz, D)
     if method not in ("adam", "lbfgs"):
         raise NotImplementedError(
             f"method {method!r} is not ported: rotosolve and the scipy bridge wait "
             "(ROADMAP.md, item 19); use 'adam' or 'lbfgs'"
         )
-    if device is None:
-        device = initial_guess.device if isinstance(initial_guess, torch.Tensor) else "cpu"
-    device = torch.device(device)
-    cdtype, rdtype = default_dtypes(device)
+    device = resolve_device(device, initial_guess)
+    cdtype, rdtype = default_dtypes(device, initial_guess)
     if initial_guess is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -87,7 +100,6 @@ def find_ground_state(
         ) * 0.5
     x0 = torch.as_tensor(initial_guess).to(device, rdtype)
     h = torch.as_tensor(as_host_matrix(H)).to(device, cdtype)
-    build = ansatze.shallow_full_state
 
     def loss(p):
         return energy_exact_env(build(p), h)

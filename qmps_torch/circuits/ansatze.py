@@ -2,14 +2,16 @@
 
 Ported: the 15-parameter exact SU(4) decomposition "full15"
 (qmps/represent.py:382-404), the D = 2 state gate of the evolve path, as
-its elementary-gate list and as its compiled unitary.  The rest of the zoo
-waits (ROADMAP.md, item 9).
+its elementary-gate list and as its compiled unitary; the dense Lie
+exponentials "su4" and "suN".  The rest of the zoo waits (ROADMAP.md,
+item 9).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import gates as g
+from ..core import lie
 
 #: rotation axis of each of the 15 parameters of shallow_full_state
 _FULL15_AXES = "zxzzxzyyzzxzzxz"
@@ -56,3 +58,15 @@ def shallow_full_state(params: torch.Tensor) -> torch.Tensor:
     cnot = g.CNOT.to(R.device, R.dtype)
     cnot10 = g.SWAP.to(R.device, R.dtype) @ cnot @ g.SWAP.to(R.device, R.dtype)
     return K[..., 3, :, :] @ cnot @ K[..., 2, :, :] @ cnot10 @ K[..., 1, :, :] @ cnot @ K[..., 0, :, :]
+
+
+def full_state_su4(params: torch.Tensor) -> torch.Tensor:
+    """15-param dense SU(4) via the Lie exponential (xmps.spin.U4 path used
+    by NonSparseFullEnergyOptimizer at D = 2)."""
+    return lie.U4(params)
+
+
+def full_state_suN(params: torch.Tensor, D: int) -> torch.Tensor:
+    """(2D)^2 - 1 param dense SU(2D) state unitary for any D
+    (qmps/ground_state.py:245-249)."""
+    return lie.SU(params, 2 * D)

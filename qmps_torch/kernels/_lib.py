@@ -32,7 +32,8 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v
 LINK_FLAGS = [*_ARCH, "-shared"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
-launches = {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0, "tdvp_fwd": 0, "tdvp_bwd": 0}
+launches = {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0, "tdvp_fwd": 0, "tdvp_bwd": 0,
+            "brickwork_overlap": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "qmps_energy_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "qmps_tdvp_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     "qmps_tdvp_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "qmps_brickwork_overlap": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,12 +1,12 @@
 """Transfer-operator fixed points (counterpart of ``qmps_tpu.mps.transfer``),
 batched over any leading dimensions.
 
-Ported: the right matvec, the dense transfer matrix, the eigenvalue with
-its rank-1 implicit adjoint (``dominant_eigval_dense``), the eigenpair in
-a holomorphic c^T v = 1 gauge with its bordered-solve adjoint
-(``dominant_eigpair_cgauge``) and the dense ``right_fixed_point``.  The
-matvec (Krylov) forms, the left fixed point and the recycled solvers wait
-(ROADMAP.md, items 4 and 14).
+Ported: the right and left matvecs, the dense transfer matrix, the
+eigenvalue with its rank-1 implicit adjoint (``dominant_eigval_dense``),
+the eigenpair in a holomorphic c^T v = 1 gauge with its bordered-solve
+adjoint (``dominant_eigpair_cgauge``) and the dense ``right_fixed_point``
+and ``left_fixed_point``.  The matvec (Krylov) forms and the recycled
+solvers wait (ROADMAP.md, items 4 and 14).
 
 The adjoints are ``torch.autograd.Function``s.  For a holomorphic map the
 JAX custom_vjp's cotangent Ebar pairs as dlam = sum Ebar dE; PyTorch's
@@ -25,6 +25,11 @@ def right_matvec(A: torch.Tensor, B: torch.Tensor, r: torch.Tensor) -> torch.Ten
     """(E r) = sum_s A[s] r B[s]^dag, the right action of the mixed transfer
     operator E^A_B (xmps Map convention)."""
     return torch.einsum("...sij,...jk,...slk->...il", A, r, B.conj())
+
+
+def left_matvec(A: torch.Tensor, B: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """(l E) = sum_s A[s]^dag l B[s], the left action."""
+    return torch.einsum("...sji,...jk,...skl->...il", A.conj(), l, B)
 
 
 def transfer_dense(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -103,3 +108,10 @@ def right_fixed_point(A: torch.Tensor, B: torch.Tensor, dense: bool = True, iter
     lam, v = dominant_eigpair_cgauge(E, _chirp(D1 * D2, E.dtype, E.device))
     r = rotate_to_hermitian(v.reshape(v.shape[:-1] + (D1, D2)))
     return lam, r / torch.linalg.matrix_norm(r)[..., None, None]
+
+
+def left_fixed_point(A: torch.Tensor, B: torch.Tensor, dense: bool = True):
+    """Dominant (lam, l) of l -> sum_s A[s]^dag l B[s], l as a (..., D, D)
+    matrix in the gauge of ``right_fixed_point``: the left action of E is
+    the right action of the daggered tensors."""
+    return right_fixed_point(A.mH, B.mH, dense=dense)

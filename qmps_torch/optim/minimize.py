@@ -5,7 +5,8 @@
   0.999, eps 1e-8 outside the square root, bias correction), which is the
   formula ``torch.optim.Adam`` computes; the fused single-launch form on
   CUDA.  ``minimize_adam`` decays the rate as optax's
-  ``cosine_decay_schedule(lr, steps, alpha=0.05)``.
+  ``cosine_decay_schedule(lr, steps, alpha=0.05)``; ``exponential_decay``
+  is optax's non-staircase ``exponential_decay`` as a ``schedule``.
 - ``minimize_lbfgs``: ``torch.optim.LBFGS`` (memory 10, strong-Wolfe line
   search).  optax's L-BFGS (zoom line search) cannot be matched iterate
   for iterate, so parity is held on the converged value (ROADMAP.md,
@@ -36,6 +37,12 @@ class OptResult:
 def cosine_decay(steps: int, alpha: float = 0.05) -> Callable[[int], float]:
     """optax.cosine_decay_schedule's factor at update k (of init_value)."""
     return lambda k: (1 - alpha) * 0.5 * (1 + math.cos(math.pi * min(k, steps) / steps)) + alpha
+
+
+def exponential_decay(steps: int, rate: float) -> Callable[[int], float]:
+    """optax.exponential_decay(lr, steps, rate)'s factor at update k (of
+    lr): rate ** (k / steps), without staircase."""
+    return lambda k: rate ** (k / steps)
 
 
 def adam_steps(loss: Callable, x0: torch.Tensor, steps: int, lr: float,

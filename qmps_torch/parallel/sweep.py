@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import default_dtypes
+from ..config import default_dtypes, resolve_device
 from ..core.paulis import I2, X, Z
 from ..kernels.energy_fused import energy_objective_fused
 
@@ -40,14 +40,13 @@ def sweep_ground_states_fused(
 
     ``gs`` (n,) couplings; ``generator`` draws the starting isometries (a
     CPU ``torch.Generator``, seed 0 if None); ``device`` defaults to gs's
-    (CPU for a non-tensor).  On the CPU the sweep runs in complex128 with
-    the plain objective, on CUDA in complex64 with the kernels.
+    for a tensor, else to the card (``config.resolve_device``).  On the
+    CPU the sweep runs in complex128 with the plain objective, on CUDA in
+    complex64 with the kernels.
 
     Returns (energies (n,), As (n, 2, 2, 2) left-canonical tensors).
     """
-    if device is None:
-        device = gs.device if isinstance(gs, torch.Tensor) else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device, gs)
     _, rdtype = default_dtypes(device)
     gs = torch.as_tensor(gs, dtype=rdtype, device=device)
     if generator is None:

@@ -20,6 +20,8 @@ from qmps_torch.ham.hamiltonian import tfim
 from qmps_torch.kernels import _lib
 from qmps_torch.kernels import energy_fused as tef
 from qmps_torch.kernels import tdvp_fused as tdf
+from qmps_torch.kernels.brickwork_fast import manifold_overlap_batched
+from qmps_torch.kernels.brickwork_pallas import manifold_overlap_pallas
 from qmps_torch.kernels.pallas_power import dominant_eig_batched
 from qmps_torch.parallel.sweep import sweep_ground_states_fused, tfim_matrix
 
@@ -79,7 +81,8 @@ def test_sweep_on_card():
     _lib.reset_launches()
     es, As = sweep_ground_states_fused(torch.tensor(g, device=dev), steps=60, restarts=2)
     torch.cuda.synchronize()
-    assert _lib.launches == {"dominant_eig": 0, "energy_fwd": 61, "energy_bwd": 60, "tdvp_fwd": 0, "tdvp_bwd": 0}
+    assert _lib.launches == {"dominant_eig": 0, "energy_fwd": 61, "energy_bwd": 60, "tdvp_fwd": 0, "tdvp_bwd": 0,
+                             "brickwork_overlap": 0}
     assert es.device.type == "cuda" and As.dtype == torch.complex64
     A = to_np(As).astype(np.complex128)
     assert np.all(np.isfinite(A))
@@ -170,3 +173,28 @@ def test_quench_on_card():
     t = np.arange(1, 11) * 0.02
     for j, g in enumerate(g1):
         assert np.max(np.abs(rates[j] - loschmidt_rate(t, 1.5, g))) < 0.02, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 1000])
+def test_k6_matches_plain(B):
+    """K6 (complex64) against the plain version at complex128 on the same
+    inputs, at batches that are not a multiple of the 64-element block, a
+    shared W and Ml = M^dag passed as a lazy conjugate view: every element
+    to 1e-5 in the complex difference (bench.py:115's bound); one launch."""
+    dev = require_cuda()
+    rng = np.random.default_rng(11)
+
+    def hu(*shape):
+        Q, _ = np.linalg.qr(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+        return torch.from_numpy(Q.astype(np.complex64)).to(dev)
+
+    U1, U2, U1p, U2p = (hu(B, 4, 4) for _ in range(4))
+    M, W = hu(B, 2, 2), hu(16, 16)
+    _lib.reset_launches()
+    out = manifold_overlap_pallas(U1, U2, U1p, U2p, M, M.mH, W)
+    torch.cuda.synchronize()
+    assert _lib.launches["brickwork_overlap"] == 1 and out.shape == (B,) and out.dtype == torch.complex64
+    ref = manifold_overlap_batched(*(t.cpu().to(torch.complex128) for t in (U1, U2, U1p, U2p, M)),
+                                   M.cpu().to(torch.complex128).mH, W.cpu().to(torch.complex128))
+    assert np.abs(to_np(out) - to_np(ref)).max() <= 1e-5

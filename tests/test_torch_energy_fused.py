@@ -115,7 +115,7 @@ def test_near_critical_gradient():
     subdominant transfer eigenvalue near 1), the plain objective's
     deflated-series gradient against autograd through the reference
     composition, to 1e-8 (test_energy_fused.py:91-112)."""
-    gs = find_ground_state(tfim(1.0), D=2, ansatz="full15", method="lbfgs", steps=200)
+    gs = find_ground_state(tfim(1.0), D=2, ansatz="full15", method="lbfgs", steps=200, device="cpu")
     As = unitary_to_tensor(shallow_full_state(gs.params))[None]
     hs = torch.from_numpy(tfim_h([1.0]))
     A1, A2 = As.clone().requires_grad_(), As.clone().requires_grad_()
