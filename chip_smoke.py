@@ -43,13 +43,29 @@ Phases (any failure exits non-zero, and nothing is caught):
      Loschmidt pipeline from the ground state of phase 8 (12 steps of 120
      inner steps) against the exact rate, and the warm start (the "suN"
      ground state, compiled into bricks, evolved 12 steps of 200 inner
-     steps) against the exact rate, each path timed.
+     steps) against the exact rate, each path timed;
+ 11. K7 and K8 (the normalised power of N = D^2 > 4 matrices): random
+     matrices scaled by 1/sqrt(N) at N = 9, 16 (K7), 25, 64 and 256 (K8, its
+     device-memory path), one zero matrix in each set, and the real D = 4
+     and D = 8 TDVP transfer matrices [E, E^dag] of phase 12's 4,096 pairs
+     (8,192 each); every element's lam (2e-5) and v up to phase (1e-4)
+     against the plain version at complex128, both through the same
+     _extract_eigpair; kernel, plain version and one unwarmed
+     torch.linalg.eig timed at 8,192;
+ 12. main path, the batched D >= 3 TDVP objective: tdvp_objective_pallas
+     and its Bs-gradient on 4,096 pairs at D = 4 (K7) and D = 8 (K8) with a
+     per-pair gate, every element against the dense objective at
+     complex128 on the card (values 2e-5, gradients 2e-4 times max(1, the
+     element's largest |grad|)), one K7 or K8 launch a value and gradient
+     and none in the backward, then 20 value-and-gradient calls timed.
 Each kernel's entry in the JSON line has its bound: the larger of its
 float32 operations over 67 TFLOP/s and its bytes (each input read once,
 each output written once) over 3.35 TB/s, the published H100 SXM peaks
-(``kernel_work``).  K1-K5's operations are those of their solves'
-algorithms; K6's those of the cheapest pairwise contraction order of its
-network (``cheapest_contraction``), fewer than the kernel does.
+(``kernel_work``).  K1-K5's and K7-K8's operations are those of their
+algorithms, every squaring of a complex matrix counted in its
+three-product form (``csquare_flops``); K6's those of the cheapest
+pairwise contraction order of its network (``cheapest_contraction``).
+Both are fewer than the kernels do.
 Prints one JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -68,6 +84,11 @@ K1_BATCH, K1_ITERS = 65536, 40
 # (dt 0.02, bench.py:545-556), cut to 30 of 300 outer steps (t_max 0.6)
 G0, N_G1, G1_MIN, G1_MAX, DT, QUENCH_STEPS, INNER, QUENCH_LR = 1.5, 64, 0.1, 0.4, 0.02, 30, 80, 3e-2
 GS_STEPS, TDVP_ITERS, TDVP_BATCH = 300, 48, 65536
+# the batched D >= 3 TDVP objective at the size the JAX package measured it
+# (qmps_tpu/kernels/pallas_power.py:514-516, scripts/tpu_pallas_grad_bench.py:
+# 27-28): 4,096 pairs, 48 squarings; D = 4 runs K7 (N = 16), D = 8 K8 (N = 64)
+BIG_BATCH, BIG_CALLS = 4096, 20
+BIG_DS = {4: ("K7", "matpow_small"), 8: ("K8", "matpow_large")}  # D -> the kernel and its counter
 # the brickwork family (tests/test_brickwork.py:109-129, 171-205)
 BW_BATCH, BW_G0, BW_G1 = 65536, 1.5, 0.2
 
@@ -77,11 +98,26 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 CMAC, CMUL = 8, 6  # real flops of a complex multiply-add (4 FMAs) and of a product
 
 
+def csquare_flops(N):
+    """Real flops of the square of an N x N complex matrix R + iI in its
+    three-product form, the form the TPU's K8 squares in: R R, I I and
+    (R + I)(R + I) (6 N^3), N^2 adds before them and 3 N^2 after (re = RR -
+    II, im = (R + I)^2 - RR - II).  The kernels do 8 N^3, as four products."""
+    return 6 * N ** 3 + 4 * N * N
+
+
+def matpow_flops(N, iters):
+    """csrc/matpow.cu (K7, K8): the first normalisation and, per squaring,
+    the square and the normalisation of its N^2 entries (6 flops each: the
+    square, the sum, the scaling)."""
+    return iters * (csquare_flops(N) + N * N * 6) + N * N * 6
+
+
 def solve_flops(iters):
-    """planes.cuh::solve4 by squaring: per squaring a 4x4 complex product
-    (64 multiply-adds) and the normalisation of its 16 entries (6 flops
-    each); then three matvecs, the Rayleigh quotient and two norms."""
-    return iters * (64 * CMAC + 16 * 6) + 52 * CMAC + 56
+    """planes.cuh::solve4 by squaring: per squaring the square of a 4x4
+    complex matrix and the normalisation of its 16 entries (6 flops each);
+    then three matvecs, the Rayleigh quotient and two norms."""
+    return iters * (csquare_flops(4) + 16 * 6) + 52 * CMAC + 56
 
 
 # K6's network per element: 13 operands over 2-dim indices, the U2 columns
@@ -131,9 +167,10 @@ def kernel_work(name, B, w_bytes=0):
     """(flops, bytes) of one launch over B elements: a complex multiply-add
     is 8 flops, a product 6; each input byte read once and each output byte
     written once (``w_bytes``: a W read once per launch or per element).
-    K1-K5 count their solves as written; K6 the cheapest contraction of its
-    network (1,444 multiply-adds: Ml and Mr fold into the outer c2 and r2
-    first, and W's 1,024 dominate), not the 2,240 multiply-adds and 384
+    K1-K5 and K7-K8 count their algorithms, each squaring in its
+    three-product form (``csquare_flops``); K6 the cheapest contraction of
+    its network (1,444 multiply-adds: Ml and Mr fold into the outer c2 and
+    r2 first, and W's 1,024 dominate), not the 2,240 multiply-adds and 384
     products of the kernel as written."""
     k6 = cheapest_contraction(K6_NETWORK)
     aa, e = 16 * (CMUL + CMAC), 64 * CMAC  # build_AA, build_E
@@ -149,6 +186,9 @@ def kernel_work(name, B, w_bytes=0):
         "K5": (2 * aa + e + 2 * 96 * CMAC + 4 * 64 * CMAC + 60,
                64 + 64 + 32 + 32 + 8 + 4 + 64 + 64 + 128),
         "K6": (CMAC * k6[0] + CMUL * k6[1], 128 + 128 + 32 + 32 + 32 + 32 + 8),
+        # the main path's N: D = 4 and D = 8 transfer matrices, read and written once
+        "K7": (matpow_flops(16, TDVP_ITERS), 2 * 8 * 16 ** 2),
+        "K8": (matpow_flops(64, TDVP_ITERS), 2 * 8 * 64 ** 2),
     }[name]
     return flops * B, nbytes * B + w_bytes
 
@@ -177,17 +217,45 @@ def cuda_ms(fn, reps, warm_up=True):
     return start.elapsed_time(end) / reps
 
 
+def device_breakdown(fn, reps):
+    """torch.profiler over reps calls of fn: (host ms a call, device-busy ms
+    a call, the four kernels of most device time as (name, ms a call)).
+    Busy is the union of the kernels' intervals; None where the profiler
+    recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return host, None, []
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3 / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return host, busy / 1e3 / reps, top
+
+
 def require(ok, what):
     """Fail the run (not an assert: -O would strip it)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def left_canonical(rng, B):
-    """(B, 2, 2, 2) left-canonical tensors A[s, i, j] from numpy QR."""
-    x = rng.standard_normal((B, 4, 2)) + 1j * rng.standard_normal((B, 4, 2))
+def left_canonical(rng, B, D=2):
+    """(B, 2, D, D) left-canonical tensors A[s, i, j] from numpy QR."""
+    x = rng.standard_normal((B, 2 * D, D)) + 1j * rng.standard_normal((B, 2 * D, D))
     V, _ = np.linalg.qr(x)
-    return V.reshape(B, 2, 2, 2).transpose(0, 2, 1, 3)
+    return V.reshape(B, D, 2, D).transpose(0, 2, 1, 3)
 
 
 def transfer(A):
@@ -196,23 +264,24 @@ def transfer(A):
 
 
 def phase_aligned(v, ref):
+    """v rotated by the global phase that best matches ref (a zero row as it is)."""
     ph = (v.conj() * ref).sum(-1)
-    return v * (ph / ph.abs())[:, None]
+    return v * torch.where(ph.abs() > 0, ph / ph.abs(), torch.ones_like(ph))[:, None]
 
 
 def isometry_f64(A):
     """The nearest exact isometry, in float64, to each returned f32 tensor
-    (n, 2, 2, 2): host_energy_d2 assumes left-canonical input, and f32
+    (n, 2, D, D): host_energy_d2 assumes left-canonical input, and f32
     leaves a ~1e-7 defect that would bias the readout by as much."""
-    n = A.shape[0]
-    V = A.transpose(0, 2, 1, 3).reshape(n, 4, 2)
+    n, D = A.shape[0], A.shape[-1]
+    V = A.transpose(0, 2, 1, 3).reshape(n, 2 * D, D)
     U, _, Wh = np.linalg.svd(V, full_matrices=False)
-    return (U @ Wh).reshape(n, 2, 2, 2).transpose(0, 2, 1, 3)
+    return (U @ Wh).reshape(n, D, 2, D).transpose(0, 2, 1, 3)
 
 
 def near_isometry(rng, A, eps):
     """The nearest left-canonical tensors, in float64, to A + eps * complex
-    normal noise (n, 2, 2, 2): a TDVP candidate B close to its A."""
+    normal noise (n, 2, D, D): a TDVP candidate B close to its A."""
     noise = rng.standard_normal(A.shape) + 1j * rng.standard_normal(A.shape)
     return isometry_f64(A + eps * noise)
 
@@ -351,6 +420,49 @@ def brickwork_family(p_gs):
             "warm_start_max_rate_error": float(err_w), "warm_start_seconds": t_compile + t_ws}
 
 
+def big_tdvp_inputs(rng, D, dev):
+    """BIG_BATCH quench-like TDVP pairs at bond dimension D, complex64 on the
+    card: left-canonical A, B the nearest isometry to A + 0.03 noise
+    (tests/test_pallas.py:143-161), W = expm(-i h(g1) 0.04) for g1 in
+    [0.1, 0.4], one a pair."""
+    from qmps_torch.parallel.sweep import tfim_matrix
+
+    A = left_canonical(rng, BIG_BATCH, D)
+    B = near_isometry(rng, A, 0.03)
+    g1 = torch.from_numpy(rng.uniform(G1_MIN, G1_MAX, BIG_BATCH)).to(dev)
+    W = torch.linalg.matrix_exp(-1j * tfim_matrix(g1).to(torch.complex128) * (2 * DT))
+    return [torch.as_tensor(t).to(dev, torch.complex64).contiguous() for t in (A, B, W)]
+
+
+def random_matrices(rng, N, B, dev):
+    """B complex normal N x N matrices scaled by 1/sqrt(N)
+    (tests/test_pallas.py:110-113), complex64 on the card, element 5 zero."""
+    E = (rng.standard_normal((B, N, N)) + 1j * rng.standard_normal((B, N, N))) / np.sqrt(N)
+    E[5] = 0
+    return torch.from_numpy(E).to(dev, torch.complex64)
+
+
+def matpow_check(tpp, tag, E):
+    """The K7/K8 path (complex64) against the plain version at complex128 on
+    the same inputs, both through _extract_eigpair: lam to 2e-5 and v up to
+    its phase to 1e-4 on every element, zero matrices finite.  Returns the
+    larger error."""
+    lam, v = tpp.dominant_eig_batched(E, TDVP_ITERS)
+    E64 = E.to(torch.complex128)
+    lam_p, v_p = tpp._extract_eigpair(E64, tpp._matrix_power_plain(E64, TDVP_ITERS))
+    err_lam = (lam.to(torch.complex128) - lam_p).abs().max().item()
+    err_v = (phase_aligned(v.to(torch.complex128), v_p) - v_p).abs().max().item()
+    n, N = E.shape[:2]
+    zero = (E.abs().amax((1, 2)) == 0)
+    print(f"{'K7' if N <= 16 else 'K8'} {tag} ({n} x {N}x{N}): |dlam| {err_lam:.3g} (tol 2e-5), |dv| up to phase "
+          f"{err_v:.3g} (tol 1e-4); |lam| in [{lam_p.abs().min().item():.4f}, {lam_p.abs().max().item():.4f}], "
+          f"{int(zero.sum())} zero matrices")
+    require(bool(torch.isfinite(torch.view_as_real(lam)).all() and torch.isfinite(torch.view_as_real(v)).all())
+            and not lam[zero].any() and not v[zero].any(), f"finite output, zero matrices zero ({tag})")
+    require(err_lam < 2e-5 and err_v < 1e-4, f"{'K7' if N <= 16 else 'K8'} against its plain version ({tag})")
+    return max(err_lam, err_v)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -363,8 +475,11 @@ def main() -> int:
     from qmps_torch.ham.hamiltonian import tfim
     from qmps_torch.kernels import _lib
     from qmps_torch.kernels import energy_fused as tef
+    from qmps_torch.kernels import pallas_power as tpp
     from qmps_torch.kernels import tdvp_fused as tdf
+    from qmps_torch.mps.transfer import transfer_dense
     from qmps_torch.objectives.energy import energy_exact_env
+    from qmps_torch.objectives.overlap import mixed_transfer_with_gate, tdvp_objective, tdvp_objective_pallas
     from qmps_torch.kernels.pallas_power import _dominant_eig_plain, dominant_eig_batched
     from qmps_torch.parallel.sweep import _fused_sweep_programs, sweep_ground_states_fused, tfim_matrix
     from qmps_torch.algorithms import brickwork_tdvp as bwt
@@ -374,6 +489,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     c64, c128 = torch.complex64, torch.complex128
+
+    def counts(**launched):
+        """The launch counters as a run that launched only ``launched`` leaves them."""
+        return {**dict.fromkeys(_lib.launches, 0), **launched}
 
     # ---- 1. device ----
     card = subprocess.run(
@@ -492,8 +611,7 @@ def main() -> int:
     launches = dict(_lib.launches)
     print(f"sweep: {N_POINTS} points x {STEPS} steps x {RESTARTS} restarts in {dt:.4f} s, "
           f"{N_POINTS / dt:.1f} points/s on {card}; launches {launches}")
-    require(launches == {"dominant_eig": 1, "energy_fwd": STEPS + 1, "energy_bwd": STEPS,
-                         "tdvp_fwd": 0, "tdvp_bwd": 0, "brickwork_overlap": 0},
+    require(launches == counts(dominant_eig=1, energy_fwd=STEPS + 1, energy_bwd=STEPS),
             f"launch counts of the main path {launches}")
 
     A_host = isometry_f64(As.cpu().numpy().astype(np.complex128))
@@ -605,9 +723,7 @@ def main() -> int:
     print(f"quench: {N_G1} trajectories x {QUENCH_STEPS} steps x {INNER} inner in {t_q:.4f} s, "
           f"{n_inner / t_q:.1f} inner steps/s, {N_G1 * QUENCH_STEPS / t_q:.1f} trajectory-steps/s "
           f"on {card}; launches {launches_q}")
-    require(launches_q == {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0,
-                           "tdvp_fwd": n_inner, "tdvp_bwd": n_inner, "brickwork_overlap": 0},
-            f"launch counts of the quench {launches_q}")
+    require(launches_q == counts(tdvp_fwd=n_inner, tdvp_bwd=n_inner), f"launch counts of the quench {launches_q}")
     require(les.is_cuda, "the quench ran on the card")
     les64 = les.double().cpu().numpy()
     t64 = np.arange(1, QUENCH_STEPS + 1) * (QUENCH_STEPS * DT / QUENCH_STEPS)
@@ -674,9 +790,7 @@ def main() -> int:
     print(f"config 5 ({cfg5.batch} x {cfg5.iters}): flat form {m5['overlap_evals_per_sec']:.4g} evals/s, "
           f"fused K6 {m5['overlap_evals_per_sec_fused']:.4g} evals/s (the headline), flat vs fused "
           f"|d| {m5['max_abs_diff']:.3g} (< 1e-5) on {m5['device']}; launches {launches_5}")
-    require(launches_5 == {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0, "tdvp_fwd": 0,
-                           "tdvp_bwd": 0, "brickwork_overlap": 4 * cfg5.iters + 2},
-            f"launch counts of config 5 {launches_5}")
+    require(launches_5 == counts(brickwork_overlap=4 * cfg5.iters + 2), f"launch counts of config 5 {launches_5}")
 
     # ---- 10. the brickwork family on the card (float32) ----
     _lib.reset_launches()
@@ -685,7 +799,98 @@ def main() -> int:
     print(f"brickwork family launches {launches_10}; the Loschmidt path with its ground state "
           f"{fam['loschmidt_seconds'] + t_bw_gs:.3f} s")
     # the brickwork algorithms reach no kernel (nor do the JAX package's)
-    require(not any(launches_10.values()), f"launch counts of the brickwork family {launches_10}")
+    require(launches_10 == counts(), f"launch counts of the brickwork family {launches_10}")
+
+    # ---- 11. K7, K8 against their plain versions ----
+    t11 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    big = {D: big_tdvp_inputs(rng, D, dev) for D in BIG_DS}  # phase 12's inputs too
+    E_big = {}
+    for D, (A, B, W) in big.items():  # the main path's matrices, and their daggers for the left vectors
+        E = transfer_dense(*mixed_transfer_with_gate(A, B, W))
+        E_big[D] = torch.cat([E, E.mH]).resolve_conj().contiguous()
+    errs7 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (9, 16)]
+    errs7.append(matpow_check(tpp, "D = 4 TDVP [E, E^dag]", E_big[4]))
+    errs8 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (25, 64)]
+    errs8.append(matpow_check(tpp, "random, device-memory path", random_matrices(rng, 256, 133, dev)))
+    errs8.append(matpow_check(tpp, "D = 8 TDVP [E, E^dag]", E_big[8]))
+    # kernel times at the full-width batch: raw launches into a preallocated
+    # output, then checked against the wrapper's
+    for D, (k, _) in BIG_DS.items():
+        E = E_big[D]
+        n, N = E.shape[:2]
+        M = tpp._matrix_power_cuda(E, TDVP_ITERS)
+        M_o = torch.empty_like(M)
+        if k == "K7":
+            launch = lambda: lib.qmps_matpow_small(E.data_ptr(), M_o.data_ptr(), n, N, TDVP_ITERS, stream)
+        else:
+            launch = lambda: lib.qmps_matpow_large(E.data_ptr(), M_o.data_ptr(), None, n, N, TDVP_ITERS, stream)
+        results[k] = dict(max_abs_err=max(errs7 if k == "K7" else errs8),
+                          ms=cuda_ms(launch, 50 if k == "K7" else 10))
+        require(torch.equal(M_o, M), f"{k} timed launches reproduce its output")
+        results[k]["plain_ms"] = cuda_ms(lambda: tpp._matrix_power_plain(E, TDVP_ITERS), 5 if k == "K7" else 2)
+        # one call, not warmed: eig on CUDA tensors computes on the host
+        results[k]["library_ms"] = cuda_ms(lambda: eig_dominant(E), 1, warm_up=False)
+        results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, n))))
+        print(f"{k} times ({n} x {N}x{N}, {TDVP_ITERS} squarings): kernel {results[k]['ms']:.5f} ms, plain "
+              f"{results[k]['plain_ms']:.4f} ms, torch.linalg.eig + pick {results[k]['library_ms']:.1f} ms, bound "
+              f"{results[k]['bound_ms']:.5f} ms ({results[k]['bound_by']})")
+    print(f"phase 11 in {time.perf_counter() - t11:.1f} s")
+
+    # ---- 12. main path, the batched D >= 3 TDVP objective at 4,096 ----
+    launches_12, big_rates, big_errs, big_idle = {}, {}, {}, {}
+    for D, (k, name) in BIG_DS.items():
+        A, B, W = big[D]
+
+        def value_and_grad():
+            Bg = B.clone().requires_grad_()
+            val = tdvp_objective_pallas(A, Bg, W, TDVP_ITERS)
+            n_fwd = dict(_lib.launches)
+            val.sum().backward()
+            return val.detach(), Bg.grad, n_fwd
+
+        _lib.reset_launches()
+        val, grad, n_fwd = value_and_grad()
+        torch.cuda.synchronize()
+        n_all = dict(_lib.launches)
+        require(n_fwd == n_all == counts(**{name: 1}),
+                f"D = {D}: one {k} launch a value and gradient, none in the backward ({n_fwd}, {n_all})")
+        B64 = B.to(c128).requires_grad_()
+        ref = tdvp_objective(A.to(c128), B64, W.to(c128))  # the dense path, dominant_eigval_dense
+        ref.sum().backward()
+        err_val = (val.double() - ref.detach()).abs().max().item()
+        d = (grad.to(c128) - B64.grad).abs().reshape(BIG_BATCH, -1).max(1).values
+        sc = B64.grad.abs().reshape(BIG_BATCH, -1).max(1).values.clamp(min=1.0)
+        err_grad = (d / sc).max().item()
+        big_errs[D] = (err_val, err_grad)
+        print(f"TDVP objective D = {D} ({BIG_BATCH}, batched W, {k}): |d value| {err_val:.3g} (tol 2e-5), "
+              f"|d grad|/max(1,|grad|) {err_grad:.3g} (tol 2e-4), |grad| up to {sc.max().item():.4g}; "
+              f"values in [{ref.min().item():.6f}, {ref.max().item():.6f}]")
+        require(val.shape == (BIG_BATCH,) and bool(torch.isfinite(val).all() and torch.isfinite(
+            torch.view_as_real(grad)).all()), f"D = {D}: finite value and gradient of the expected shapes")
+        require(err_val < 2e-5 and err_grad < 2e-4, f"D = {D} objective against the dense path")
+        value_and_grad()  # warm-up
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(BIG_CALLS):
+            value_and_grad()
+        torch.cuda.synchronize()
+        dt12 = time.perf_counter() - t0
+        n_timed = dict(_lib.launches)
+        require(n_timed == counts(**{name: BIG_CALLS}), f"D = {D}: launches of the timed calls {n_timed}")
+        launches_12[name] = n_all[name] + n_timed[name]
+        big_rates[D] = BIG_CALLS * BIG_BATCH / dt12
+        call_ms = dt12 * 1e3 / BIG_CALLS
+        print(f"TDVP objective D = {D}: {BIG_CALLS} value-and-gradient calls of {BIG_BATCH} in {dt12:.4f} s "
+              f"({call_ms:.4f} ms a call), {big_rates[D]:.4g} objectives/s on {card}")
+        # device busy from the profiler, over the unprofiled time of a call
+        host_ms, busy_ms, top = device_breakdown(value_and_grad, 5)
+        big_idle[D] = None if busy_ms is None else 1 - busy_ms / call_ms
+        print(f"TDVP objective D = {D} under torch.profiler (5 calls): {host_ms:.4f} ms a call, device busy "
+              + ("not measured (no kernel recorded)" if busy_ms is None else
+                 f"{busy_ms:.4f} ms, idle share {big_idle[D]:.4f} of the unprofiled call; largest: "
+                 + "; ".join(f"{n[:60]} {t:.4f} ms" for n, t in top)))
 
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
@@ -695,10 +900,13 @@ def main() -> int:
         "K5": ("tdvp_bwd", "qmps_torch/csrc/tdvp_fused.cu", "qmps_tpu/kernels/tdvp_fused.py:247"),
         "K6": ("brickwork_overlap", "qmps_torch/csrc/brickwork_overlap.cu",
                "qmps_tpu/kernels/brickwork_pallas.py:34"),
+        "K7": ("matpow_small", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:245"),
+        "K8": ("matpow_large", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:332"),
     }
-    # each kernel's launches in the run of its own main path (phase 5, 7 or 9)
+    # each kernel's launches in the runs of its own main path (phase 5, 7, 9
+    # or 12: the checked call and the timed ones)
     all_launches = {**launches, "tdvp_fwd": launches_q["tdvp_fwd"], "tdvp_bwd": launches_q["tdvp_bwd"],
-                    "brickwork_overlap": launches_5["brickwork_overlap"]}
+                    "brickwork_overlap": launches_5["brickwork_overlap"], **launches_12}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": all_launches[name], **results[k]}
@@ -712,7 +920,11 @@ def main() -> int:
                       "quench_max_rate_error": float(rate_err.max()),
                       "overlap_evals_per_sec": m5["overlap_evals_per_sec"],
                       "overlap_evals_per_sec_fused": m5["overlap_evals_per_sec_fused"],
-                      **{f"brickwork_{k}": v for k, v in fam.items()}}))
+                      **{f"brickwork_{k}": v for k, v in fam.items()},
+                      **{f"tdvp_d{D}_objectives_per_second": r for D, r in big_rates.items()},
+                      **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},
+                      **{f"tdvp_d{D}_value_error": e[0] for D, e in big_errs.items()},
+                      **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,25 +1,39 @@
-"""Batched dominant eigenpair of small transfer matrices (kernel K1).
+"""Batched dominant eigenpair of small transfer matrices (kernels K1, K7, K8).
 
-The environment solve of a D = 2 uniform MPS is the dominant eigenpair of
-a batch of 4 x 4 complex transfer matrices.  ``dominant_eig_batched`` runs
-it by repeated squaring (default; error ~ |l2/l1|^(2^iters), machine
-precision for any nontrivial gap) or by power iteration.
+The environment solve of a uniform MPS of bond dimension D is the dominant
+eigenpair of a batch of N x N complex transfer matrices, N = D^2.
+``dominant_eig_batched`` runs it by repeated squaring (default; error
+~ |l2/l1|^(2^iters), machine precision for any nontrivial gap) or, at N = 4,
+by power iteration.  ``dominant_eigval_batched`` is its differentiable face.
 
-For a CUDA tensor it launches the hand-written kernel
-``csrc/pallas_power.cu`` (float32, one thread per matrix), which replaces
-``qmps_tpu/kernels/pallas_power.py::_squaring_kernel`` and
-``::_power_kernel``; for a CPU tensor it runs ``_dominant_eig_plain``, the
-same algorithm in plain PyTorch at the tensor's own precision.
+For a CUDA tensor (complex64) it launches hand-written kernels:
+- N = 4 (D = 2): ``csrc/pallas_power.cu`` (K1, one thread a matrix, the
+  whole solve in registers), which replaces
+  ``qmps_tpu/kernels/pallas_power.py::_squaring_kernel`` and
+  ``::_power_kernel``;
+- 4 < N <= 16 (D = 3, 4) and N > 16 (D >= 5): ``csrc/matpow.cu`` (K7, one
+  warp a matrix; K8, one block a matrix), which replace ``::_matpow_kernel_looped``
+  and ``::_squaring_kernel_mxu``.  They return the normalised power
+  E^(2^iters); ``_extract_eigpair`` reads (lam, v) off it in plain PyTorch,
+  as the JAX package does in XLA.
+For a CPU tensor the plain versions below run the same algorithms at the
+tensor's own precision.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _lib
 
 _METHODS = {"squaring": 0, "power": 1}
+#: largest N of K7 (one warp a matrix); K8 takes every larger N
+MAX_SMALL_N = 16
+#: largest N whose power K8 keeps in shared memory; above it, in a workspace
+MAX_SHARED_N = 64
 
 
 def _chirps(N: int):
@@ -30,6 +44,14 @@ def _chirps(N: int):
     return c1, c2
 
 
+@functools.lru_cache(maxsize=None)
+def _chirp_matrix(N: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The two chirps as the columns of one (N, 2) tensor, built once per
+    (N, dtype, device)."""
+    c1, c2 = _chirps(N)
+    return torch.tensor([[complex(*a), complex(*b)] for a, b in zip(c1, c2)], dtype=dtype, device=device)
+
+
 def _rsqrt_clamped(n2: torch.Tensor) -> torch.Tensor:
     return torch.rsqrt(torch.clamp(n2, min=1e-30))
 
@@ -38,35 +60,53 @@ def _sq_norm(x: torch.Tensor, dims) -> torch.Tensor:
     return (x.real.square() + x.imag.square()).sum(dims, keepdim=True)
 
 
+def _normalised(M: torch.Tensor) -> torch.Tensor:
+    """M / ||M||_F per matrix, the norm floored as the kernels floor it."""
+    return M * _rsqrt_clamped(_sq_norm(M, (-2, -1)))
+
+
+def _extract_eigpair(E: torch.Tensor, M: torch.Tensor):
+    """(lam (B,), v (B, N)) from the converged power M of E
+    (pallas_power.py::_extract_eigpair): v = M c for the two chirps, the
+    larger wins, normalised; lam = v^dag E v.  A zero M gives v = 0, lam = 0."""
+    V = M @ _chirp_matrix(E.shape[-1], E.dtype, E.device)  # (B, N, 2)
+    n2 = _sq_norm(V, -2)
+    v = torch.where(n2[..., 0] >= n2[..., 1], V[..., 0], V[..., 1])
+    v = v * _rsqrt_clamped(_sq_norm(v, -1))
+    lam = (v.conj() * (E @ v[..., None])[..., 0]).sum(-1)  # Rayleigh, v unit norm
+    return lam, v
+
+
 def _dominant_eig_plain(E: torch.Tensor, iters: int = 48, method: str = "squaring"):
-    """Plain PyTorch version of the K1 kernel: (B, 4, 4) complex ->
-    (lam (B,), v (B, 4)), the same steps as the kernel."""
+    """Plain PyTorch version of the K1 kernel: (B, N, N) complex -> (lam
+    (B,), v (B, N)), the same steps as the kernel."""
     if method == "squaring":
         M = E
         for _ in range(iters):
-            M = M @ M
-            M = M * _rsqrt_clamped(_sq_norm(M, (-2, -1)))
-        N = E.shape[-1]
-        v1, v2 = (
-            M @ torch.tensor([complex(*z) for z in c], dtype=E.dtype, device=E.device)
-            for c in _chirps(N)
-        )
-        use1 = _sq_norm(v1, -1) >= _sq_norm(v2, -1)
-        v = torch.where(use1, v1, v2)
-        v = v * _rsqrt_clamped(_sq_norm(v, -1))
-    elif method == "power":
-        dither = torch.tensor(
-            [0.37 * math.cos(1.7 * i + 0.3) for i in range(E.shape[-1])],
-            dtype=E.real.dtype, device=E.device,
-        )
-        v = E[:, :, 0] + dither
-        for _ in range(iters):
-            w = (E @ v[..., None])[..., 0]
-            v = w * _rsqrt_clamped(_sq_norm(w, -1))
-    else:
+            M = _normalised(M @ M)
+        return _extract_eigpair(E, M)
+    if method != "power":
         raise ValueError(f"method must be 'squaring' or 'power', got {method!r}")
-    lam = (v.conj() * (E @ v[..., None])[..., 0]).sum(-1)  # Rayleigh, v unit norm
+    dither = torch.tensor(
+        [0.37 * math.cos(1.7 * i + 0.3) for i in range(E.shape[-1])],
+        dtype=E.real.dtype, device=E.device,
+    )
+    v = E[:, :, 0] + dither
+    for _ in range(iters):
+        w = (E @ v[..., None])[..., 0]
+        v = w * _rsqrt_clamped(_sq_norm(w, -1))
+    lam = (v.conj() * (E @ v[..., None])[..., 0]).sum(-1)
     return lam, v
+
+
+def _matrix_power_plain(E: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain PyTorch version of K7 and K8: E / ||E||_F, then ``iters`` times
+    M <- M M / ||M M||_F per matrix (the order of steps of
+    ``_matpow_kernel_looped``), at the tensor's own precision."""
+    M = _normalised(E)
+    for _ in range(iters):
+        M = _normalised(M @ M)
+    return M
 
 
 def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str):
@@ -87,22 +127,85 @@ def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str):
     return lam, v
 
 
-def dominant_eig_batched(E: torch.Tensor, iters: int = 48, method: str = "squaring"):
-    """(B, 4, 4) complex -> (lam (B,), v (B, 4)): dominant eigenvalue and
-    unit right eigenvector of each matrix.
+def _matrix_power_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
+    """Launch K7 (4 < N <= 16) or K8 (N > 16) on a (B, N, N) complex64 CUDA
+    tensor -> the normalised power, (B, N, N) complex64."""
+    _lib.require(E, "E", torch.complex64, (None, None, None))
+    E = E.resolve_conj().contiguous()  # a lazy E^dag is materialised first
+    B, N = E.shape[0], E.shape[-1]
+    M = torch.empty_like(E)
+    if B:
+        stream = torch.cuda.current_stream(E.device).cuda_stream
+        with torch.cuda.device(E.device):
+            if N <= MAX_SMALL_N:
+                name = "matpow_small"
+                rc = _lib.lib().qmps_matpow_small(E.data_ptr(), M.data_ptr(), B, N, iters, stream)
+            else:
+                name = "matpow_large"
+                work = torch.empty_like(E) if N > MAX_SHARED_N else None
+                rc = _lib.lib().qmps_matpow_large(
+                    E.data_ptr(), M.data_ptr(), None if work is None else work.data_ptr(),
+                    B, N, iters, stream,
+                )
+        _lib.check(rc, name)
+        _lib.launches[name] += 1
+    return M
 
-    A CPU tensor runs the plain version at its own precision; a CUDA tensor
-    (complex64) launches the K1 kernel, or raises.
+
+def dominant_eig_batched(E: torch.Tensor, iters: int = 48, method: str = "squaring"):
+    """(B, N, N) complex -> (lam (B,), v (B, N)): dominant eigenvalue and
+    unit right eigenvector (arbitrary phase) of each matrix.
+
+    A CPU tensor runs the plain versions at its own precision; a CUDA tensor
+    (complex64) launches K1 at N = 4, K7 at 4 < N <= 16 and K8 above, or
+    raises.  ``method="power"`` exists for N <= 4 only, as in the JAX package.
     """
     if method not in _METHODS:
         raise ValueError(f"method must be 'squaring' or 'power', got {method!r}")
     if E.dim() != 3 or E.shape[-1] != E.shape[-2]:
         raise ValueError(f"expected a (B, N, N) batch, got {tuple(E.shape)}")
-    if E.shape[-1] != 4:
-        raise NotImplementedError(
-            "dominant_eig_batched is ported for N = 4 (D = 2) only; N > 4 waits for "
-            "the looped and MXU squaring kernels (ROADMAP.md, 'TPU kernels to port': K7, K8)"
-        )
-    if E.device.type == "cpu":
-        return _dominant_eig_plain(E, iters, method)
-    return _dominant_eig_cuda(E, iters, method)
+    N = E.shape[-1]
+    if N <= 4:
+        if E.device.type == "cpu":
+            return _dominant_eig_plain(E, iters, method)
+        if N < 4:
+            raise ValueError(f"the CUDA kernels take N >= 4 (K1 is written for N = 4), got N = {N}")
+        return _dominant_eig_cuda(E, iters, method)
+    if method != "squaring":
+        raise ValueError("the N > 4 paths implement method='squaring' only")
+    M = _matrix_power_plain(E, iters) if E.device.type == "cpu" else _matrix_power_cuda(E, iters)
+    return _extract_eigpair(E, M)
+
+
+class _DominantEigvalBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, E, iters):
+        if not ctx.needs_input_grad[0]:
+            return dominant_eig_batched(E, iters)[0]
+        # one solve on [E, E^dag] gives v and w (E^dag w = conj(lam) w)
+        B = E.shape[0]
+        lam, v = dominant_eig_batched(torch.cat([E, E.mH]), iters)
+        ctx.save_for_backward(v[:B], v[B:])
+        ctx.e_type = E.dtype
+        return lam[:B]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        v, w = ctx.saved_tensors
+        # conj of pallas_power.py::_dom_eigval_batched_bwd at the conjugated
+        # cotangent: JAX's Ebar = ct conj(w) v^T / (w^dag v)
+        denom = (w.conj() * v).sum(-1)
+        Ebar = (g / denom.conj())[:, None, None] * w[:, :, None] * v.conj()[:, None, :]
+        return Ebar.to(ctx.e_type), None
+
+
+def dominant_eigval_batched(E: torch.Tensor, iters: int = 48) -> torch.Tensor:
+    """Dominant eigenvalues of a (B, N, N) complex batch, differentiable.
+
+    Forward: ``dominant_eig_batched`` (on the card K1, K7 or K8 by N); when
+    a gradient will be taken, one solve of [E, E^dag] gives the right and
+    left eigenvectors at once.  Backward: the rank-1 implicit adjoint
+    dlam = (w^dag dE v) / (w^dag v), no further solve.
+    """
+    return _DominantEigvalBatched.apply(E, iters)

@@ -25,12 +25,20 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
-def left_canonical(rng, B):
-    """(B, 2, 2, 2) complex128 left-canonical D = 2 tensors A[s, i, j] from
-    numpy QR of complex normals (the sweep's own initial layout)."""
-    x = rng.standard_normal((B, 4, 2)) + 1j * rng.standard_normal((B, 4, 2))
+def left_canonical(rng, B, D=2):
+    """(B, 2, D, D) complex128 left-canonical tensors A[s, i, j] from numpy
+    QR of complex normals (at D = 2 the sweep's own initial layout)."""
+    x = rng.standard_normal((B, 2 * D, D)) + 1j * rng.standard_normal((B, 2 * D, D))
     V, _ = np.linalg.qr(x)
-    return V.reshape(B, 2, 2, 2).transpose(0, 2, 1, 3).copy()
+    return V.reshape(B, D, 2, D).transpose(0, 2, 1, 3).copy()
+
+
+def nearest_isometry(A):
+    """The nearest left-canonical tensors (B, 2, D, D) to each A, by SVD."""
+    B, _, D, _ = A.shape
+    x = A.transpose(0, 2, 1, 3).reshape(B, 2 * D, D)
+    U, _, Vh = np.linalg.svd(x, full_matrices=False)
+    return (U @ Vh).reshape(B, D, 2, D).transpose(0, 2, 1, 3).copy()
 
 
 def tfim_h(g):

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import left_canonical, phase_aligned, require_cuda, tfim_h, to_np, transfer_matrices
+from _torch_parity import (left_canonical, nearest_isometry, phase_aligned, require_cuda, tfim_h, to_np,
+                           transfer_matrices)
 from qmps_torch.algorithms.evolve import batched_quench_sweep
 from qmps_torch.algorithms.ground_state import find_ground_state
 from qmps_torch.ham.classical_baselines import host_energy_d2
@@ -19,10 +20,12 @@ from qmps_torch.ham.exact import loschmidt_rate
 from qmps_torch.ham.hamiltonian import tfim
 from qmps_torch.kernels import _lib
 from qmps_torch.kernels import energy_fused as tef
+from qmps_torch.kernels import pallas_power as tpp
 from qmps_torch.kernels import tdvp_fused as tdf
 from qmps_torch.kernels.brickwork_fast import manifold_overlap_batched
 from qmps_torch.kernels.brickwork_pallas import manifold_overlap_pallas
 from qmps_torch.kernels.pallas_power import dominant_eig_batched
+from qmps_torch.objectives.overlap import tdvp_objective, tdvp_objective_pallas
 from qmps_torch.parallel.sweep import sweep_ground_states_fused, tfim_matrix
 
 
@@ -82,7 +85,7 @@ def test_sweep_on_card():
     es, As = sweep_ground_states_fused(torch.tensor(g, device=dev), steps=60, restarts=2)
     torch.cuda.synchronize()
     assert _lib.launches == {"dominant_eig": 0, "energy_fwd": 61, "energy_bwd": 60, "tdvp_fwd": 0, "tdvp_bwd": 0,
-                             "brickwork_overlap": 0}
+                             "brickwork_overlap": 0, "matpow_small": 0, "matpow_large": 0}
     assert es.device.type == "cuda" and As.dtype == torch.complex64
     A = to_np(As).astype(np.complex128)
     assert np.all(np.isfinite(A))
@@ -198,3 +201,61 @@ def test_k6_matches_plain(B):
     ref = manifold_overlap_batched(*(t.cpu().to(torch.complex128) for t in (U1, U2, U1p, U2p, M)),
                                    M.cpu().to(torch.complex128).mH, W.cpu().to(torch.complex128))
     assert np.abs(to_np(out) - to_np(ref)).max() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [9, 16, 25, 64, 256])
+def test_k7_k8_match_plain(N):
+    """K7 (N <= 16) and K8 (complex64; at N = 256 through its device-memory
+    path) against the plain version at complex128 on the same inputs,
+    random matrices scaled by 1/sqrt(N) at a batch that is a multiple of no
+    block, one of them zero: lam to 2e-5, v up to its phase to 1e-4, the
+    zero element finite (lam = 0, v = 0); one launch."""
+    dev = require_cuda()
+    B = 37 if N == 256 else 301
+    rng = np.random.default_rng(N)
+    E = (rng.standard_normal((B, N, N)) + 1j * rng.standard_normal((B, N, N))) / np.sqrt(N)
+    E[5] = 0
+    E = torch.from_numpy(E.astype(np.complex64)).to(dev)
+    _lib.reset_launches()
+    lam, v = dominant_eig_batched(E)
+    torch.cuda.synchronize()
+    name = "matpow_small" if N <= 16 else "matpow_large"
+    assert _lib.launches[name] == 1 and sum(_lib.launches.values()) == 1
+    E64 = E.to(torch.complex128)  # the plain version, on the card
+    lam_p, v_p = tpp._extract_eigpair(E64, tpp._matrix_power_plain(E64, 48))
+    lam, v, lam_p, v_p = (to_np(t) for t in (lam, v, lam_p, v_p))
+    assert lam[5] == 0 and not v[5].any()
+    np.testing.assert_allclose(lam, lam_p, atol=2e-5)
+    keep = np.arange(B) != 5
+    np.testing.assert_allclose(phase_aligned(v[keep], v_p[keep]), v_p[keep], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tdvp_objective_d4_on_card():
+    """The D = 4 objective and its Bs-gradient on the card (complex64, K7)
+    against the dense objective at complex128 on the same inputs: values
+    to 2e-5, gradients to 2e-4 times max(1, the element's largest |grad|);
+    one K7 launch for the value and gradient, none in the backward."""
+    dev = require_cuda()
+    B = 200
+    rng = np.random.default_rng(12)
+    A = left_canonical(rng, B, 4)
+    Bt = nearest_isometry(A + 0.03 * (rng.standard_normal(A.shape) + 1j * rng.standard_normal(A.shape)))
+    g1 = torch.from_numpy(rng.uniform(0.1, 0.4, B))
+    W = torch.linalg.matrix_exp(-1j * tfim_matrix(g1).to(torch.complex128) * 0.04)
+    A32, B32, W32 = (torch.as_tensor(t).to(dev, torch.complex64) for t in (A, Bt, W))
+    Bg = B32.clone().requires_grad_()
+    _lib.reset_launches()
+    val = tdvp_objective_pallas(A32, Bg, W32, 48)
+    assert _lib.launches["matpow_small"] == 1
+    val.sum().backward()
+    torch.cuda.synchronize()
+    assert _lib.launches["matpow_small"] == 1 and sum(_lib.launches.values()) == 1
+    B64 = B32.to(torch.complex128).requires_grad_()
+    ref = tdvp_objective(A32.to(torch.complex128), B64, W32.to(torch.complex128))
+    ref.sum().backward()
+    np.testing.assert_allclose(to_np(val), to_np(ref), atol=2e-5)
+    err = np.abs(to_np(Bg.grad) - to_np(B64.grad)).reshape(B, -1).max(1)
+    scale = np.maximum(1.0, np.abs(to_np(B64.grad)).reshape(B, -1).max(1))
+    assert np.all(err <= 2e-4 * scale), (err / scale).max()

@@ -1,0 +1,161 @@
+"""qmps_torch's batched eigensolve for N = D^2 > 4 (the plain versions of
+kernels K7 and K8), ``dominant_eigval_batched`` and the D >= 3 dispatch of
+``tdvp_objective_pallas``, against qmps_tpu (its Pallas kernels in
+interpret mode, and its dense objective), numpy eig and finite
+differences.  Mirrors tests/test_pallas.py:104-196.
+
+The JAX kernels run in float32 (they cast to it even under x64), so parity
+with them holds at the float32 floor; parity with numpy and the dense
+objective is at complex128.  On the CPU the port runs its plain versions;
+the CUDA kernels are held against them on the card (test_torch_cuda.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.linalg
+import torch
+
+from _torch_parity import left_canonical, nearest_isometry, phase_aligned, tfim_h, to_np
+from qmps_torch.kernels import _lib
+from qmps_torch.kernels import pallas_power as tpp
+from qmps_torch.mps.transfer import dominant_eigval_dense
+from qmps_torch.objectives.overlap import tdvp_objective_pallas
+from qmps_tpu.kernels import pallas_power as jpp
+from qmps_tpu.objectives import overlap as jov
+
+
+def _random(N, B=6, seed=7):
+    """Complex normals scaled by 1/sqrt(N) (tests/test_pallas.py:110-113):
+    complex spectra of radius ~1, batch 6 a multiple of no pack or block."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, N, N)) + 1j * rng.standard_normal((B, N, N))) / np.sqrt(N)
+
+
+def _numpy_dominant(E):
+    w, V = np.linalg.eig(E)
+    i = np.argmax(np.abs(w), axis=1)
+    return w[np.arange(len(E)), i], V[np.arange(len(E)), :, i]
+
+
+def _tdvp_inputs(B, D, seed, batched_w):
+    """Left-canonical A, B the nearest isometry to A + 0.03 noise
+    (tests/test_pallas.py:143-161), and W = expm(-i h(g1) 0.04) per element
+    for g1 in [0.1, 0.4], or one shared expm(-0.1 i h(1))."""
+    rng = np.random.default_rng(seed)
+    A = left_canonical(rng, B, D)
+    Bt = nearest_isometry(A + 0.03 * (rng.standard_normal(A.shape) + 1j * rng.standard_normal(A.shape)))
+    if batched_w:
+        W = np.stack([scipy.linalg.expm(-0.04j * h) for h in tfim_h(rng.uniform(0.1, 0.4, B))])
+    else:
+        W = scipy.linalg.expm(-0.1j * tfim_h(1.0))
+    return A, Bt, W
+
+
+def _jax_dense(As, Bs, W):
+    if W.ndim == 3:
+        return jax.vmap(jov.tdvp_objective)(As, Bs, W)
+    return jax.vmap(lambda a, b: jov.tdvp_objective(a, b, W))(As, Bs)
+
+
+@pytest.mark.parametrize("N", [9, 16, 25, 64])
+def test_plain_matches_jax_interpret(N):
+    """complex64 plain version against the JAX kernels in interpret mode
+    (K7's at N = 9, 16; K8's at 25, 64, with its block-diagonal pack and
+    padding): lam to 2e-5, v up to its phase to 1e-5 (the phase of
+    lam^(2^iters) is arbitrary in float32)."""
+    E = _random(N).astype(np.complex64)
+    lam_j, v_j = jpp.dominant_eig_batched(jnp.asarray(E), iters=48, interpret=True)
+    lam_t, v_t = tpp.dominant_eig_batched(torch.from_numpy(E), iters=48)
+    assert lam_t.dtype == torch.complex64 and v_t.shape == (6, N)
+    np.testing.assert_allclose(to_np(lam_t), np.asarray(lam_j), atol=2e-5)
+    np.testing.assert_allclose(phase_aligned(to_np(v_t), np.asarray(v_j)), np.asarray(v_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("N", [9, 16, 25, 64])
+def test_plain_matches_numpy_eig(N):
+    """complex128 plain version against numpy eig: lam and v (up to phase)
+    to 1e-10."""
+    E = _random(N, seed=N)
+    lam, v = tpp.dominant_eig_batched(torch.from_numpy(E))
+    lam_n, v_n = _numpy_dominant(E)
+    np.testing.assert_allclose(to_np(lam), lam_n, atol=1e-10)
+    np.testing.assert_allclose(phase_aligned(to_np(v), v_n), v_n, atol=1e-10)
+
+
+def test_matrix_power_is_normalised_and_zero_stays_finite():
+    """The plain K7/K8 steps: the power has unit Frobenius norm, is rank one
+    at convergence (M = v w^dag / ... up to phase), and a zero matrix gives
+    a zero power and lam = 0, v = 0 through the clamped norms, not NaN; no
+    launch on the CPU."""
+    E = _random(9, B=3, seed=1)
+    E[1] = 0
+    _lib.reset_launches()
+    M = tpp._matrix_power_plain(torch.from_numpy(E), 48)
+    lam, v = tpp.dominant_eig_batched(torch.from_numpy(E))
+    assert not any(_lib.launches.values())
+    norms = np.linalg.norm(to_np(M), axis=(1, 2))
+    np.testing.assert_allclose(norms[[0, 2]], 1.0, atol=1e-12)
+    assert norms[1] == 0 and to_np(lam)[1] == 0 and np.all(to_np(v)[1] == 0)
+    s = np.linalg.svd(to_np(M)[[0, 2]], compute_uv=False)
+    assert np.all(s[:, 1] < 1e-12)
+
+
+def test_method_power_above_n4_raises():
+    with pytest.raises(ValueError, match="squaring"):
+        tpp.dominant_eig_batched(torch.from_numpy(_random(9)), method="power")
+    with pytest.raises(ValueError, match="method"):
+        tpp.dominant_eig_batched(torch.from_numpy(_random(9)), method="arnoldi")
+
+
+def test_eigval_gradcheck():
+    """The rank-1 adjoint against finite differences, complex128, N = 9,
+    B = 3."""
+    E = torch.from_numpy(_random(9, B=3, seed=2)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda x: tpp.dominant_eigval_batched(x, 48), (E,))
+
+
+def test_eigval_gradient_matches_jax_and_dense():
+    """Gradient of sum |lam| (N = 9, B = 3): against conj(jax.grad) of
+    JAX's dominant_eigval_batched in interpret mode (float32 inside) to
+    1e-5, and against the port's dense eigenvalue adjoint to 1e-10."""
+    E = _random(9, B=3, seed=3)
+    Et = torch.from_numpy(E).requires_grad_()
+    tpp.dominant_eigval_batched(Et, 48).abs().sum().backward()
+    gj = jax.grad(lambda x: jnp.sum(jnp.abs(jpp.dominant_eigval_batched(x, 48, True))))(jnp.asarray(E))
+    np.testing.assert_allclose(to_np(Et.grad), np.conj(np.asarray(gj)), atol=1e-5)
+    Ed = torch.from_numpy(E).requires_grad_()
+    dominant_eigval_dense(Ed).abs().sum().backward()
+    np.testing.assert_allclose(to_np(Et.grad), to_np(Ed.grad), atol=1e-10)
+
+
+def test_eigval_solves_once_with_both_vectors(monkeypatch):
+    """With a gradient the forward solves [E, E^dag] once; without, E alone:
+    both give the same eigenvalues."""
+    E = torch.from_numpy(_random(16, B=4, seed=4))
+    calls, solve = [], tpp.dominant_eig_batched
+    monkeypatch.setattr(tpp, "dominant_eig_batched", lambda x, iters: calls.append(x.shape[0]) or solve(x, iters))
+    with torch.no_grad():
+        lam0 = tpp.dominant_eigval_batched(E)
+    lam1 = tpp.dominant_eigval_batched(E.clone().requires_grad_())
+    assert calls == [4, 8]
+    np.testing.assert_allclose(to_np(lam1), to_np(lam0), atol=1e-12)
+
+
+@pytest.mark.parametrize("batched_w", [False, True])
+@pytest.mark.parametrize("D", [3, 4, 8])
+def test_tdvp_objective_pallas_larger_D(D, batched_w):
+    """tdvp_objective_pallas at D >= 3 (B = 2): values against JAX's
+    tdvp_objective_pallas in interpret mode (float32 kernels) to 2e-5 and
+    against the JAX dense objective at complex128 to 1e-10; the Bs-gradient
+    of the sum against conj(jax.grad) of the dense objective to 1e-8."""
+    As, Bs, W = _tdvp_inputs(2, D, 10 * D + batched_w, batched_w)
+    Bt = torch.from_numpy(Bs).requires_grad_()
+    val = tdvp_objective_pallas(torch.from_numpy(As), Bt, torch.from_numpy(W))
+    assert val.shape == (2,) and val.dtype == torch.float64
+    want_p = jov.tdvp_objective_pallas(jnp.asarray(As), jnp.asarray(Bs), jnp.asarray(W), 48, True)
+    np.testing.assert_allclose(to_np(val), np.asarray(want_p), atol=2e-5)
+    np.testing.assert_allclose(to_np(val), np.asarray(_jax_dense(As, Bs, W)), atol=1e-10)
+    val.sum().backward()
+    gd = jax.grad(lambda b: jnp.sum(_jax_dense(jnp.asarray(As), b, jnp.asarray(W))))(jnp.asarray(Bs))
+    np.testing.assert_allclose(to_np(Bt.grad), np.conj(np.asarray(gd)), atol=1e-8)

@@ -45,16 +45,18 @@ def test_plain_matches_numpy_eig():
 
 
 def test_cpu_tensor_runs_plain_version():
-    """A CPU tensor never touches the kernel library or its counter; the
-    unported sizes and unknown methods raise."""
+    """A CPU tensor never touches the kernel library or its counters (N = 4
+    and, through the K7/K8 path, N = 9, where a zero matrix stays finite);
+    unknown methods raise."""
     _lib.reset_launches()
     E = torch.from_numpy(transfer_matrices(4, seed=1))
     lam, v = dominant_eig_batched(E)
     assert lam.dtype == torch.complex128 and v.shape == (4, 4)
     np.testing.assert_allclose(np.abs(to_np(lam)), 1.0, atol=1e-12)
     assert _lib.launches["dominant_eig"] == 0
-    with pytest.raises(NotImplementedError, match="K7"):
-        dominant_eig_batched(torch.zeros(2, 9, 9, dtype=torch.complex128))
+    lam9, v9 = dominant_eig_batched(torch.zeros(2, 9, 9, dtype=torch.complex128))
+    assert v9.shape == (2, 9) and not lam9.any() and not v9.any()
+    assert not any(_lib.launches.values())
     with pytest.raises(ValueError, match="method"):
         dominant_eig_batched(E, method="arnoldi")
 

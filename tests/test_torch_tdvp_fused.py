@@ -121,14 +121,14 @@ def test_left_vector_only_when_a_gradient_is_taken():
 
 def test_pallas_dispatch_shape_checks():
     """tdvp_objective_pallas: the JAX package's shape errors
-    (test_evolve.py:65-80), and D > 2 waits for K7/K8."""
+    (test_evolve.py:65-80); D > 2 takes the K7/K8 path, where zero tensors
+    give a finite zero; D = 2 is the fused objective."""
     A = torch.zeros(1, 2, 4, 4, dtype=torch.complex128)
     with pytest.raises(ValueError, match="4, 4"):
         tov.tdvp_objective_pallas(A, A, torch.eye(16), iters=2)
     with pytest.raises(ValueError, match="batched"):
         tov.tdvp_objective_pallas(A[0], A[0], torch.eye(4), iters=2)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tov.tdvp_objective_pallas(A, A, torch.eye(4), iters=2)
+    np.testing.assert_array_equal(to_np(tov.tdvp_objective_pallas(A, A, torch.eye(4), iters=2)), [0.0])
     As, Bs = (torch.from_numpy(x) for x in _batch(2, 14))
     W = torch.from_numpy(_W(15))
     np.testing.assert_array_equal(to_np(tov.tdvp_objective_pallas(As, Bs, W, 48)),
