@@ -21,9 +21,12 @@ Phases (any failure exits non-zero, and nothing is caught):
   6. TDVP objective (K4, K5): quench-like inputs at 65,536 (a batched and a
      shared gate), forward and adjoint kernels against the plain versions
      at complex128, gated; bench.py's raw random inputs, reported only;
+     K4 (with the left vector) and K5 timed at 65,536 (and, in phase 7,
+     K4 on the quench's own batch of 64);
   7. main path, evolve: the ground state of tfim(1.5) (300 L-BFGS steps),
      read back in float64 against the exact energy; the K4/K5 check of
-     phase 6 on the quench's own first inner-step inputs; then the quench
+     phase 6 on the quench's own first inner-step inputs, and K4 timed on
+     them (64 elements, batched W, the left vector); then the quench
      family 1.5 -> 64 couplings in [0.1, 0.4] (dt 0.02, 30 outer steps of
      80 adam steps, engine="pallas"), timed, against the exact Loschmidt
      rate, and the launch counters show that K4 and K5 carried every inner
@@ -45,27 +48,32 @@ Phases (any failure exits non-zero, and nothing is caught):
      ground state, compiled into bricks, evolved 12 steps of 200 inner
      steps) against the exact rate, each path timed;
  11. K7 and K8 (the normalised power of N = D^2 > 4 matrices): random
-     matrices scaled by 1/sqrt(N) at N = 9, 16 (K7), 25, 64 and 256 (K8, its
-     device-memory path), one zero matrix in each set, and the real D = 4
-     and D = 8 TDVP transfer matrices [E, E^dag] of phase 12's 4,096 pairs
-     (8,192 each); every element's lam (2e-5) and v up to phase (1e-4)
-     against the plain version at complex128, both through the same
-     _extract_eigpair; kernel, plain version and one unwarmed
-     torch.linalg.eig timed at 8,192;
+     matrices scaled by 1/sqrt(N) at N = 9, 16 (K7), 25, 64 (K8 on the
+     tensor cores) and 256 (K8's device-memory path), one zero matrix in
+     each set, and the real D = 4 and D = 8 TDVP transfer matrices of phase
+     12's 4,096 pairs, E (4,096, the path's input) and [E, E^dag] (8,192,
+     the input of earlier runs); every element's lam (2e-5) and v up to
+     phase (1e-4) against the plain version at complex128, both through the
+     same _extract_eigpair; the HMMA (tensor-core) instructions of K8's
+     kernels in the library's SASS (cuobjdump); kernel timed on both
+     inputs, plain version and one unwarmed torch.linalg.eig on E;
  12. main path, the batched D >= 3 TDVP objective: tdvp_objective_pallas
      and its Bs-gradient on 4,096 pairs at D = 4 (K7) and D = 8 (K8) with a
      per-pair gate, every element against the dense objective at
      complex128 on the card (values 2e-5, gradients 2e-4 times max(1, the
-     element's largest |grad|)), one K7 or K8 launch a value and gradient
+     element's largest |grad|)), one K7 or K8 launch a value and gradient,
+     on the 4,096 matrices E (the left vector is read off the same power),
      and none in the backward, then 20 value-and-gradient calls timed.
 Each kernel's entry in the JSON line has its bound: the larger of its
-float32 operations over 67 TFLOP/s and its bytes (each input read once,
-each output written once) over 3.35 TB/s, the published H100 SXM peaks
-(``kernel_work``).  K1-K5's and K7-K8's operations are those of their
-algorithms, every squaring of a complex matrix counted in its
-three-product form (``csquare_flops``); K6's those of the cheapest
-pairwise contraction order of its network (``cheapest_contraction``).
-Both are fewer than the kernels do.
+operations over the card's peak for their type and its bytes (each input
+read once, each output written once) over 3.35 TB/s, the published H100
+SXM peaks (``kernel_work``, ``bound``).  K1-K5's and K7-K8's operations
+are those of their functions, every squaring of a complex matrix counted
+in its three-product form (``csquare_flops``), K4 with one squaring chain
+for both eigenvectors; K6's those of the cheapest pairwise contraction
+order of its network (``cheapest_contraction``).  All run on the float32
+CUDA cores (67 TFLOP/s) but K8's products, which run on the tensor cores
+in 3xTF32: three TF32 products each, over 495 TFLOP/s.
 Prints one JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -74,6 +82,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -93,8 +102,8 @@ BIG_DS = {4: ("K7", "matpow_small"), 8: ("K8", "matpow_large")}  # D -> the kern
 BW_BATCH, BW_G0, BW_G1 = 65536, 1.5, 0.2
 
 # published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
-# tensor cores, device memory
-PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# tensor cores, TF32 on the tensor cores (dense), device memory
+PEAK_F32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 CMAC, CMUL = 8, 6  # real flops of a complex multiply-add (4 FMAs) and of a product
 
 
@@ -111,6 +120,14 @@ def matpow_flops(N, iters):
     the square and the normalisation of its N^2 entries (6 flops each: the
     square, the sum, the scaling)."""
     return iters * (csquare_flops(N) + N * N * 6) + N * N * 6
+
+
+def matpow_tc_flops(N, iters):
+    """K8 on the tensor cores: (TF32 flops, float32 flops).  The three real
+    products of each squaring (6 N^3) in 3xTF32, three TF32 products each;
+    the rest of ``matpow_flops`` (the N^2 work) on the CUDA cores."""
+    products = iters * 6 * N ** 3
+    return 3 * products, matpow_flops(N, iters) - products
 
 
 def solve_flops(iters):
@@ -164,14 +181,16 @@ def cheapest_contraction(network):
 
 
 def kernel_work(name, B, w_bytes=0):
-    """(flops, bytes) of one launch over B elements: a complex multiply-add
-    is 8 flops, a product 6; each input byte read once and each output byte
-    written once (``w_bytes``: a W read once per launch or per element).
-    K1-K5 and K7-K8 count their algorithms, each squaring in its
-    three-product form (``csquare_flops``); K6 the cheapest contraction of
-    its network (1,444 multiply-adds: Ml and Mr fold into the outer c2 and
-    r2 first, and W's 1,024 dominate), not the 2,240 multiply-adds and 384
-    products of the kernel as written."""
+    """(float32 flops, bytes, TF32 flops) of one launch over B elements: a
+    complex multiply-add is 8 flops, a product 6; each input byte read once
+    and each output byte written once (``w_bytes``: a W read once per launch
+    or per element).  K1-K5 and K7-K8 count their functions, each squaring
+    in its three-product form (``csquare_flops``); K4 one squaring chain and
+    the left vector read off its power; K8's products on the tensor cores
+    (``matpow_tc_flops``); K6 the cheapest contraction of its network (1,444
+    multiply-adds: Ml and Mr fold into the outer c2 and r2 first, and W's
+    1,024 dominate), not the 2,240 multiply-adds and 384 products of the
+    kernel as written."""
     k6 = cheapest_contraction(K6_NETWORK)
     aa, e = 16 * (CMUL + CMAC), 64 * CMAC  # build_AA, build_E
     flops, nbytes = {
@@ -179,8 +198,9 @@ def kernel_work(name, B, w_bytes=0):
         "K2": (2 * aa + e + solve_flops(48) + 64 * CMAC + 124, 64 + 128 + 4 + 8 + 32),
         # before the series ~3,660, the series 24 x 80 multiply-adds, after it ~4,730
         "K3": (3656 + 24 * 80 * CMAC + 4732, 64 + 128 + 32 + 8 + 4 + 64 + 128),
-        # the two AA builds, WAA, E, and the right and left solves
-        "K4": (2 * aa + 2 * e + 2 * solve_flops(TDVP_ITERS), 64 + 64 + 8 + 32 + 32),
+        # the two AA builds, WAA, E, one solve, and u off the power: two
+        # chirp matvecs (32 multiply-adds), their norms and the scaling
+        "K4": (2 * aa + 2 * e + solve_flops(TDVP_ITERS) + 32 * CMAC + 32, 64 + 64 + 8 + 32 + 32),
         # the two AA builds, WAA, P and C (96 multiply-adds each), Wbar and
         # Q (64 each), the two AA-build adjoints (64 each), the coefficient
         "K5": (2 * aa + e + 2 * 96 * CMAC + 4 * 64 * CMAC + 60,
@@ -188,15 +208,18 @@ def kernel_work(name, B, w_bytes=0):
         "K6": (CMAC * k6[0] + CMUL * k6[1], 128 + 128 + 32 + 32 + 32 + 32 + 8),
         # the main path's N: D = 4 and D = 8 transfer matrices, read and written once
         "K7": (matpow_flops(16, TDVP_ITERS), 2 * 8 * 16 ** 2),
-        "K8": (matpow_flops(64, TDVP_ITERS), 2 * 8 * 64 ** 2),
+        "K8": (matpow_tc_flops(64, TDVP_ITERS)[1], 2 * 8 * 64 ** 2),
     }[name]
-    return flops * B, nbytes * B + w_bytes
+    tc = matpow_tc_flops(64, TDVP_ITERS)[0] if name == "K8" else 0
+    return flops * B, nbytes * B + w_bytes, tc * B
 
 
-def bound(flops, nbytes):
-    """(bound_ms, what sets it): the larger of operations over the float32
-    peak and bytes over the memory rate."""
-    t_ops, t_mem = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, tc_flops=0):
+    """(bound_ms, what sets it): the larger of the operations (float32 over
+    its peak plus TF32 over the tensor cores') and the bytes over the
+    memory rate."""
+    t_ops = (flops / PEAK_F32 + tc_flops / PEAK_TF32) * 1e3
+    t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -460,7 +483,25 @@ def matpow_check(tpp, tag, E):
     require(bool(torch.isfinite(torch.view_as_real(lam)).all() and torch.isfinite(torch.view_as_real(v)).all())
             and not lam[zero].any() and not v[zero].any(), f"finite output, zero matrices zero ({tag})")
     require(err_lam < 2e-5 and err_v < 1e-4, f"{'K7' if N <= 16 else 'K8'} against its plain version ({tag})")
-    return max(err_lam, err_v)
+    return err_lam, err_v
+
+
+def sass_hmma(lib_path):
+    """{symbol: HMMA instructions} of every K8 tensor-core kernel
+    (``matpow_tc_kernel``) in the library's SASS, by cuobjdump beside nvcc."""
+    from qmps_torch.kernels import _lib
+
+    cuobjdump = str(Path(_lib._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            if "matpow_tc_kernel" in name:
+                counts[name] = 0
+        elif name in counts and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def main() -> int:
@@ -664,7 +705,8 @@ def main() -> int:
             and all(torch.equal(a, b) for a, b in zip(bars_o, bars6)),
             "K4, K5 timed launches reproduce their outputs")
     # no single PyTorch call computes the TDVP objective or its adjoint
-    results["K4"] = dict(ms=ms4, plain_ms=cuda_ms(lambda: tdf._fwd_plain(A6, B6, W6, TDVP_ITERS, True), 5),
+    results["K4"] = dict(batch=TDVP_BATCH, ms=ms4,
+                         plain_ms=cuda_ms(lambda: tdf._fwd_plain(A6, B6, W6, TDVP_ITERS, True), 5),
                          library_ms=None)
     results["K5"] = dict(ms=ms5, plain_ms=cuda_ms(
         lambda: tdf._bwd_plain(A6, B6, W6, lam6, v6, w6, ct6), 5), library_ms=None)
@@ -709,6 +751,22 @@ def main() -> int:
     As_q, Bs_q, Ws_q = captured[:3]
     require(As_q.shape == (N_G1, 2, 2, 2) and Ws_q.shape == (N_G1, 4, 4), "captured inputs' shapes")
     errs.append(tdvp_check(tdf, "TDVP main path's first inner step", As_q, Bs_q, Ws_q, True))
+    # K4 at the quench's own batch (64: under 2% of the card's SMs), raw
+    # launches as in phase 6, checked against the wrapper's output
+    As_q, Bs_q, Ws_q = (t.contiguous() for t in (As_q, Bs_q, Ws_q))
+    outs_q = tdf._fwd_cuda(As_q, Bs_q, Ws_q, TDVP_ITERS, True)
+    lam_o, v_o, w_o = (torch.empty_like(t) for t in outs_q)
+    ms4q = cuda_ms(lambda: lib.qmps_tdvp_fwd(
+        As_q.data_ptr(), Bs_q.data_ptr(), Ws_q.data_ptr(), 16, lam_o.data_ptr(), v_o.data_ptr(),
+        w_o.data_ptr(), N_G1, TDVP_ITERS, 1, stream), 200)
+    require(all(torch.equal(x, y) for x, y in zip((lam_o, v_o, w_o), outs_q)),
+            "K4 timed launches reproduce its output (the quench's batch)")
+    results["K4"].update(
+        batch_quench=N_G1, ms_quench=ms4q,
+        plain_ms_quench=cuda_ms(lambda: tdf._fwd_plain(As_q, Bs_q, Ws_q, TDVP_ITERS, True), 5),
+        bound_ms_quench=bound(*kernel_work("K4", N_G1, w_bytes=128 * N_G1))[0])
+    print(f"K4 time on the quench's batch ({N_G1}, batched W, left vector): {ms4q:.5f} ms (plain "
+          f"{results['K4']['plain_ms_quench']:.4f} ms); at {TDVP_BATCH}: {results['K4']['ms']:.5f} ms")
     results["K4"]["max_abs_err"] = max(e[0] for e in errs)
     results["K5"]["max_abs_err"] = max(e[1] for e in errs)
 
@@ -805,36 +863,53 @@ def main() -> int:
     t11 = time.perf_counter()
     rng = np.random.default_rng(11)
     big = {D: big_tdvp_inputs(rng, D, dev) for D in BIG_DS}  # phase 12's inputs too
-    E_big = {}
-    for D, (A, B, W) in big.items():  # the main path's matrices, and their daggers for the left vectors
-        E = transfer_dense(*mixed_transfer_with_gate(A, B, W))
-        E_big[D] = torch.cat([E, E.mH]).resolve_conj().contiguous()
+    E_big = {}  # D -> (E, the path's 4,096 matrices; [E, E^dag], the 8,192 of earlier runs)
+    for D, (A, B, W) in big.items():
+        E = transfer_dense(*mixed_transfer_with_gate(A, B, W)).contiguous()
+        E_big[D] = (E, torch.cat([E, E.mH]).resolve_conj().contiguous())
+    tags = ("E", "[E, E^dag]")
     errs7 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (9, 16)]
-    errs7.append(matpow_check(tpp, "D = 4 TDVP [E, E^dag]", E_big[4]))
+    errs7 += [matpow_check(tpp, f"D = 4 TDVP {t}", X) for t, X in zip(tags, E_big[4])]
     errs8 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (25, 64)]
+    errs8 += [matpow_check(tpp, f"D = 8 TDVP {t}", X) for t, X in zip(tags, E_big[8])]
+    tc = errs8[:]  # the tensor-core path's
     errs8.append(matpow_check(tpp, "random, device-memory path", random_matrices(rng, 256, 133, dev)))
-    errs8.append(matpow_check(tpp, "D = 8 TDVP [E, E^dag]", E_big[8]))
-    # kernel times at the full-width batch: raw launches into a preallocated
-    # output, then checked against the wrapper's
+    print(f"K8 on the tensor cores (3xTF32), largest errors against complex128: random N = 64 lam "
+          f"{errs8[1][0]:.3g}, v {errs8[1][1]:.3g}; over N = 25, 64 and the D = 8 matrices lam "
+          f"{max(e[0] for e in tc):.3g}, v {max(e[1] for e in tc):.3g}. The CUDA-core K8 of earlier runs: "
+          f"lam 6.5e-7, v 1.3e-6 at random N = 64 (PERF.md)")
+    hmma = sass_hmma(path)
+    print("K8 SASS (cuobjdump -sass): " + "; ".join(f"{n} {c} HMMA" for n, c in sorted(hmma.items())))
+    require(len(hmma) == 3 and min(hmma.values()) > 0, f"K8's kernels run on the tensor cores {hmma}")
+    # kernel times on both inputs: raw launches into a preallocated output,
+    # then checked against the wrapper's
     for D, (k, _) in BIG_DS.items():
-        E = E_big[D]
-        n, N = E.shape[:2]
-        M = tpp._matrix_power_cuda(E, TDVP_ITERS)
-        M_o = torch.empty_like(M)
-        if k == "K7":
-            launch = lambda: lib.qmps_matpow_small(E.data_ptr(), M_o.data_ptr(), n, N, TDVP_ITERS, stream)
-        else:
-            launch = lambda: lib.qmps_matpow_large(E.data_ptr(), M_o.data_ptr(), None, n, N, TDVP_ITERS, stream)
-        results[k] = dict(max_abs_err=max(errs7 if k == "K7" else errs8),
-                          ms=cuda_ms(launch, 50 if k == "K7" else 10))
-        require(torch.equal(M_o, M), f"{k} timed launches reproduce its output")
-        results[k]["plain_ms"] = cuda_ms(lambda: tpp._matrix_power_plain(E, TDVP_ITERS), 5 if k == "K7" else 2)
-        # one call, not warmed: eig on CUDA tensors computes on the host
-        results[k]["library_ms"] = cuda_ms(lambda: eig_dominant(E), 1, warm_up=False)
-        results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, n))))
-        print(f"{k} times ({n} x {N}x{N}, {TDVP_ITERS} squarings): kernel {results[k]['ms']:.5f} ms, plain "
-              f"{results[k]['plain_ms']:.4f} ms, torch.linalg.eig + pick {results[k]['library_ms']:.1f} ms, bound "
-              f"{results[k]['bound_ms']:.5f} ms ({results[k]['bound_by']})")
+        E, E2 = E_big[D]
+        N = E.shape[-1]
+
+        def launch(X, M_o):
+            n = X.shape[0]
+            if k == "K7":
+                return lambda: lib.qmps_matpow_small(X.data_ptr(), M_o.data_ptr(), n, N, TDVP_ITERS, stream)
+            return lambda: lib.qmps_matpow_large(X.data_ptr(), M_o.data_ptr(), None, n, N, TDVP_ITERS, stream)
+
+        ms = {}
+        for t, X in zip(tags, (E, E2)):
+            M = tpp._matrix_power_cuda(X, TDVP_ITERS)
+            M_o = torch.empty_like(M)
+            ms[t] = cuda_ms(launch(X, M_o), 50 if k == "K7" else 10)
+            require(torch.equal(M_o, M), f"{k} timed launches reproduce its output ({t})")
+        results[k] = dict(batch=BIG_BATCH, max_abs_err=max(max(e) for e in (errs7 if k == "K7" else errs8)),
+                          ms=ms["E"], ms_e_edag_8192=ms["[E, E^dag]"],
+                          plain_ms=cuda_ms(lambda: tpp._matrix_power_plain(E, TDVP_ITERS), 5 if k == "K7" else 2),
+                          # one call, not warmed: eig on CUDA tensors computes on the host
+                          library_ms=cuda_ms(lambda: eig_dominant(E), 1, warm_up=False))
+        results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, BIG_BATCH))))
+        results[k]["bound_ms_e_edag_8192"] = bound(*kernel_work(k, 2 * BIG_BATCH))[0]
+        print(f"{k} times ({N}x{N}, {TDVP_ITERS} squarings): kernel {ms['E']:.5f} ms on E ({BIG_BATCH}), "
+              f"{ms['[E, E^dag]']:.5f} ms on [E, E^dag] ({2 * BIG_BATCH}); plain {results[k]['plain_ms']:.4f} ms, "
+              f"torch.linalg.eig + pick {results[k]['library_ms']:.1f} ms, bound {results[k]['bound_ms']:.5f} ms "
+              f"({results[k]['bound_by']}) on E")
     print(f"phase 11 in {time.perf_counter() - t11:.1f} s")
 
     # ---- 12. main path, the batched D >= 3 TDVP objective at 4,096 ----
@@ -849,12 +924,18 @@ def main() -> int:
             val.sum().backward()
             return val.detach(), Bg.grad, n_fwd
 
+        # the batch each K7/K8 launch is given: the 4,096 matrices E, whose
+        # one power gives both eigenvectors
+        batches, power_cuda = [], tpp._matrix_power_cuda
+        tpp._matrix_power_cuda = lambda X, iters: batches.append(X.shape[0]) or power_cuda(X, iters)
         _lib.reset_launches()
         val, grad, n_fwd = value_and_grad()
         torch.cuda.synchronize()
+        tpp._matrix_power_cuda = power_cuda
         n_all = dict(_lib.launches)
         require(n_fwd == n_all == counts(**{name: 1}),
                 f"D = {D}: one {k} launch a value and gradient, none in the backward ({n_fwd}, {n_all})")
+        require(batches == [BIG_BATCH], f"D = {D}: {k} launched on {batches} matrices, not {BIG_BATCH}")
         B64 = B.to(c128).requires_grad_()
         ref = tdvp_objective(A.to(c128), B64, W.to(c128))  # the dense path, dominant_eigval_dense
         ref.sum().backward()
@@ -863,7 +944,8 @@ def main() -> int:
         sc = B64.grad.abs().reshape(BIG_BATCH, -1).max(1).values.clamp(min=1.0)
         err_grad = (d / sc).max().item()
         big_errs[D] = (err_val, err_grad)
-        print(f"TDVP objective D = {D} ({BIG_BATCH}, batched W, {k}): |d value| {err_val:.3g} (tol 2e-5), "
+        print(f"TDVP objective D = {D} ({BIG_BATCH}, batched W, one {k} launch on {batches[0]} matrices): "
+              f"|d value| {err_val:.3g} (tol 2e-5), "
               f"|d grad|/max(1,|grad|) {err_grad:.3g} (tol 2e-4), |grad| up to {sc.max().item():.4g}; "
               f"values in [{ref.min().item():.6f}, {ref.max().item():.6f}]")
         require(val.shape == (BIG_BATCH,) and bool(torch.isfinite(val).all() and torch.isfinite(

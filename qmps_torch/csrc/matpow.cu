@@ -1,8 +1,8 @@
 // K7 and K8: the normalised power E^(2^iters) of a batch of N x N complex
 // matrices, N = D^2 > 4: the squaring half of the batched dominant-eigenpair
 // solve at bond dimension D >= 3.  The eigenpair itself is read off the power
-// outside (kernels/pallas_power.py::_extract_eigpair, one matvec), as in the
-// JAX package.
+// outside (kernels/pallas_power.py::_extract_eigpair, one matvec; the left
+// eigenvector off the same power's conjugate transpose, _left_vector).
 //
 // Replaces qmps_tpu/kernels/pallas_power.py::_matpow_kernel_looped (K7,
 // 4 < N <= 16, launched by _matrix_power_batched_component) and
@@ -13,43 +13,67 @@
 //
 // with the norm floored as rsqrt(max(n2, 1e-30)), so that a zero matrix
 // stays finite (zero).  The TPU layouts are not carried over: no
-// component-major planes, no padding of the batch to 1024, no block-diagonal
-// pack of 128 // N elements for the 128-wide MXU and no Karatsuba (which
-// trades a product for cancellation).  Both kernels read the (B, N, N)
-// complex64 tensor as it is and write the power in the same layout; the
-// ragged edge of the batch is guarded.  K8 normalises after every squaring
-// where the MXU kernel does so after every second one: the same normalised
-// power up to rounding, and no range to watch in float32.
+// component-major planes, no padding of the batch to 1024 and no
+// block-diagonal pack of 128 // N elements for the 128-wide MXU.  Both
+// kernels read the (B, N, N) complex64 tensor as it is and write the power
+// in the same layout.  K8 normalises after every squaring where the MXU
+// kernel does so after every second one: the same normalised power up to
+// rounding, no range to watch in float32, and N^2 work against N^3.
 //
 // What bounds them on an H100: operations.  A squaring is N^3 complex
-// multiply-adds (8 float32 flops each) against 16 N^2 bytes that the whole
-// loop reads and writes once: at N = 16 and 48 squarings ~1,000 flops a
-// byte, far above the card's float32 ridge of 67e12 / 3.35e12 = 20.  All
-// arithmetic is float32 FMAs on the CUDA cores (the port keeps squaring
-// paths off TF32, ROADMAP "Numerics follow the reference").  What the
-// design does about it: the power stays on chip for all iters squarings
-// (shared memory up to N = 64), every thread keeps a register tile of the
-// product, so each operand it loads from shared memory feeds several
-// multiply-adds, and the product is written back in place once the norm is
-// known.
+// multiply-adds against 16 N^2 bytes that the whole loop reads and writes
+// once: at N = 16 and 48 squarings ~1,000 flops a byte.
 //
-// K7 (4 < N <= 16): one warp an element, 8 elements a block.  The power
-// lives in shared memory (N^2 x 8 B, 2 KB at N = 16); the square is held
-// in registers: lane l owns column j = l % N and the rows r0, r0 + R, ...
-// (r0 = l / N, R = 32 / N lanes a column; at N = 16 two lanes a column,
-// eight rows each), so the column entry it loads is used ROWS times and the
-// row entries are broadcasts.  The norm is a __shfl_xor_sync butterfly.
+// K7 (4 < N <= 16): float32 FMAs on the CUDA cores, one warp an element, 8
+// elements a block.  The power lives in shared memory (N^2 x 8 B, 2 KB at
+// N = 16); the square is held in registers: lane l owns column j = l % N
+// and the rows r0, r0 + R, ... (r0 = l / N, R = 32 / N lanes a column; at
+// N = 16 two lanes a column, eight rows each), so the column entry it loads
+// is used ROWS times and the row entries are broadcasts.  The norm is a
+// __shfl_xor_sync butterfly.
 //
-// K8 (N > 16): one block of 256 threads an element, a 16 x 16 grid of
-// threads each owning a 4 x 4 tile of the product (rows ty + 16 p, columns
-// tx + 16 q), the norm a block reduction.  Up to N = 64 the power lives in
-// shared memory, zero-padded to 16 T >= N (32 KB at N = 64: the square is in
-// registers, so one buffer suffices and no opt-in above 48 KB is needed);
-// zero rows and columns stay zero through the squaring.  Above N = 64 it
-// ping-pongs between the output and a workspace of the same shape in device
-// memory (L2-resident at these sizes), each squaring over 64 x 64 output
-// tiles and 16-deep contraction chunks staged in shared memory; one block
-// owns one element, so __syncthreads is the only synchronisation needed.
+// K8 (16 < N <= 64, D = 5..8): the tensor cores, which the CUDA cores'
+// 67 TFLOP/s leave far behind (495 TFLOP/s dense TF32).  One block an
+// element, one warp for each 16-row strip of the power, padded to NP = 16 T
+// >= N (T = 2, 3, 4 warps).  The power stays in shared memory for all iters
+// squarings as three float32 planes, R, I and S = R + I (3 x 24 KB at
+// N = 64, rows of 96 floats; dynamic shared memory above the default
+// 48 KB), each row skewed (skew) so that both fragment loads are free of
+// bank conflicts.
+// A squaring is three real products, RR, II and SS (Karatsuba, as the TPU
+// kernel squares: 6 N^3 flops where four products take 8 N^3), each as
+// mma.sync.m16n8k8 tiles in 3xTF32: every operand is split into TF32 hi
+// and lo when its fragment is loaded, and hi hi + hi lo + lo hi is summed
+// in float32 registers.  One-pass TF32 keeps ~3 decimal digits and breaks
+// the squaring fixed point (lam off by ~4e-4 at N = 64); 3xTF32 keeps
+// float32's (tests/test_torch_matpow.py::test_k8_tensor_core_numerics
+// emulates both).  Then re = RR - II and im = SS - RR - II in registers,
+// the norm is a block reduction, and the rescaled planes are written back
+// in place once every warp has read the old ones.  Zero padding stays
+// zero.  The fragments are mma.sync's, not wgmma's (64-row tiles from
+// shared memory, K-major TF32 operands): 3xTF32 splits each operand in
+// registers, which wgmma's shared-memory B operand would take as a fourth
+// and fifth plane; wgmma is the later step.  Measured (qmps_torch/
+// kernel_ab.py; NVIDIA H100 80GB HBM3, 700 W): 5.7-5.9 ms on the 4,096
+// D = 8 matrices of a 4,096-pair objective call, 34% of the bound (2.0 ms:
+// the products' 3 x 6 N^3 TF32 flops a squaring over 495 TFLOP/s, the N^2
+// work over 67), against 12.3-12.7 ms for the CUDA-core kernel it replaced.
+// Two changes to the first tensor-core design paid 1.21x: the split by
+// integer rounding (cvt.rna.tf32.f32 compiles to compares and selects
+// around the rounding) and the additive skew (the XOR swizzle cost address
+// arithmetic for every B fragment).  Twice the warps (two a strip) did
+// not pay (4% slower): 128 registers and 72 KB of shared memory give 3
+// blocks, 12 warps, an SM.
+//
+// Above N = 64 (matpow_global_kernel, CUDA cores): one 256-thread block an
+// element, a 16 x 16 grid of threads each owning a 4 x 4 register tile of
+// the product; the power ping-pongs between the output and a workspace of
+// the same shape in device memory (L2-resident at these sizes), each
+// squaring over 64 x 64 output tiles and 16-deep contraction chunks staged
+// in shared memory; one block owns one element, so __syncthreads is the
+// only synchronisation needed.
+#include <cstdint>
+
 #include "planes.cuh"
 
 namespace qmps {
@@ -132,76 +156,175 @@ int launch_small(const float2* E, float2* out, int B, int iters, cudaStream_t st
 // K8: N > 16, one block an element
 // ---------------------------------------------------------------------------
 
-constexpr int kLargeThreads = 256;  // a 16 x 16 grid of threads
+constexpr int kLargeThreads = 256;  // matpow_global_kernel: a 16 x 16 grid of threads
 constexpr int kGrid = 16;
 constexpr int kOutTile = 64;        // the device-memory path's output tile
 constexpr int kChunk = 16;          // and its contraction chunk
 
-// The sum of x over the block, on every thread.  Its first barrier also
-// orders every read before it against every write after it.
+// The sum of x over a block of kWarps warps, on every thread.  Its first
+// barrier also orders every read before it against every write after it.
+template <int kWarps>
 __device__ __forceinline__ float block_sum(float x, float* red) {
   x = warp_sum(x);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
   __syncthreads();
   float s = 0.f;
 #pragma unroll
-  for (int w = 0; w < kLargeThreads / 32; ++w) s += red[w];
+  for (int w = 0; w < kWarps; ++w) s += red[w];
   __syncthreads();  // red is free again
   return s;
 }
 
-// 16 < N <= 16 T <= 64: the power in shared memory, zero-padded to NP = 16 T
+// ---- 16 < N <= 64: the squaring on the tensor cores in 3xTF32 ----
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero:
+// half an ulp added to the magnitude's bits, the low 13 bits cleared), as
+// the b32 register mma takes.  cvt.rna.tf32.f32 computes the same for
+// finite x, but compiles to compares and selects around it (no NaN or
+// infinity reaches here: the planes are normalised)
+__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// 3xTF32's split: x = hi + lo, both TF32; hi hi + hi lo + lo hi keeps
+// float32's accuracy (the lo lo term is below float32's rounding)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b for a 16 x 8 (row) by 8 x 8 (col) TF32 tile, float32 accumulators
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The column skew of row r: entry (r, c) of a plane lives at
+// r * LD + c + skew(r), LD a multiple of 32.  skew is 8 (r mod 4) + 4 (bit 2
+// of r), so both fragment loads hit 32 distinct banks: the A tile's rows
+// g < 8 at column t < 4 and the B tile's rows t < 4 at column g < 8.  Being
+// added, not XORed, it keeps every fragment at a compile-time offset from
+// a base the thread computes once (a k-step moves the base).
+__device__ __forceinline__ int skew(int r) { return ((r & 3) << 3) | (r & 4); }
+
 template <int T>
-__global__ void __launch_bounds__(kLargeThreads)
-    matpow_shared_kernel(const float2* __restrict__ E, float2* __restrict__ out, int N, int iters) {
-  constexpr int NP = kGrid * T;
-  __shared__ float2 s[NP * NP];
-  __shared__ float red[kLargeThreads / 32];
-  const int tx = threadIdx.x % kGrid, ty = threadIdx.x / kGrid;
+struct TcShape {
+  static constexpr int NP = 16 * T;               // padded size: T warps of 16-row strips
+  static constexpr int LD = T == 2 ? 64 : 96;     // row stride of a plane, floats (>= NP + 28)
+  static constexpr int PLANE = NP * LD;
+  static constexpr int THREADS = 32 * T;
+  static constexpr int BYTES = (3 * PLANE + 32) * (int)sizeof(float);  // R, I, S and the reduction
+};
+
+template <int T>
+__global__ void __launch_bounds__(TcShape<T>::THREADS)
+    matpow_tc_kernel(const float2* __restrict__ E, float2* __restrict__ out, int N, int iters) {
+  using S = TcShape<T>;
+  constexpr int NP = S::NP, LD = S::LD, NT = NP / 8;
+  extern __shared__ float sm[];
+  float* const pl[3] = {sm, sm + S::PLANE, sm + 2 * S::PLANE};  // R, I, S = R + I
+  float* const red = sm + 3 * S::PLANE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const size_t off = (size_t)blockIdx.x * N * N;
 
   float n2 = 0.f;
-  for (int k = threadIdx.x; k < NP * NP; k += kLargeThreads) {
+  for (int k = threadIdx.x; k < NP * NP; k += S::THREADS) {
     const int i = k / NP, j = k % NP;
     const float2 x = (i < N && j < N) ? E[off + i * N + j] : make_float2(0.f, 0.f);
-    s[k] = x;
+    pl[0][i * LD + j + skew(i)] = x.x;
+    pl[1][i * LD + j + skew(i)] = x.y;
     n2 += x.x * x.x + x.y * x.y;
   }
-  float inv = rsqrtf(fmaxf(block_sum(n2, red), kNormFloor));
-  for (int k = threadIdx.x; k < NP * NP; k += kLargeThreads) st(s, k, inv * ld(s, k));
+  float inv = rsqrtf(fmaxf(block_sum<T>(n2, red), kNormFloor));
+  for (int k = threadIdx.x; k < NP * NP; k += S::THREADS) {  // the entries this thread wrote
+    const int a = (k / NP) * LD + k % NP + skew(k / NP);
+    const float re = inv * pl[0][a], im = inv * pl[1][a];
+    pl[0][a] = re;
+    pl[1][a] = im;
+    pl[2][a] = re + im;
+  }
   __syncthreads();
 
+  // this warp's strip: rows r0 + g and r0 + g + 8 of the A fragments and
+  // of the accumulators (skew(r0 + g) = skew(r0 + g + 8) = skew(g)), at
+  // column t of the k-step; the B fragments' rows t and t + 4 of the k-step
+  // (skew 8 t and 8 t + 4) at column g of the n-tile
+  const int r0 = 16 * warp;
+  const int a0 = (r0 + g) * LD + skew(g) + t, b0 = t * LD + 8 * t + g;
   for (int it = 0; it < iters; ++it) {
-    c32 acc[T][T];
+    float acc[3][NT][4];  // RR, II, SS over the strip, n-tile n, fragment entry
 #pragma unroll
-    for (int p = 0; p < T; ++p)
+    for (int p = 0; p < 3; ++p)
 #pragma unroll
-      for (int q = 0; q < T; ++q) acc[p][q] = mk(0.f, 0.f);
-#pragma unroll 4
-    for (int k = 0; k < N; ++k) {
-      c32 a[T], c[T];
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int p = 0; p < T; ++p) a[p] = ld(s, (ty + kGrid * p) * NP + k);
+        for (int e = 0; e < 4; ++e) acc[p][n][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < NP / 8; ++kk) {
 #pragma unroll
-      for (int q = 0; q < T; ++q) c[q] = ld(s, k * NP + tx + kGrid * q);
+      for (int p = 0; p < 3; ++p) {
+        const float* A = pl[p] + a0 + 8 * kk;
+        const float* Bk = pl[p] + b0 + 8 * kk * LD;
+        uint32_t ah[4], al[4];
+        split_tf32(A[0], ah[0], al[0]);
+        split_tf32(A[8 * LD], ah[1], al[1]);
+        split_tf32(A[4], ah[2], al[2]);
+        split_tf32(A[8 * LD + 4], ah[3], al[3]);
 #pragma unroll
-      for (int p = 0; p < T; ++p)
-#pragma unroll
-        for (int q = 0; q < T; ++q) cfma(acc[p][q], a[p], c[q]);
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bh[2], bl[2];
+          split_tf32(Bk[8 * n], bh[0], bl[0]);
+          split_tf32(Bk[4 * LD + 4 + 8 * n], bh[1], bl[1]);
+          mma_tf32(acc[p][n], al, bh);  // the small terms first
+          mma_tf32(acc[p][n], ah, bl);
+          mma_tf32(acc[p][n], ah, bh);
+        }
+      }
     }
+    // re = RR - II, im = SS - RR - II (Karatsuba, as the TPU kernel)
     n2 = 0.f;
 #pragma unroll
-    for (int p = 0; p < T; ++p)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int q = 0; q < T; ++q) n2 += norm2(acc[p][q]);  // zero in the padding
-    inv = rsqrtf(fmaxf(block_sum(n2, red), kNormFloor));
+      for (int e = 0; e < 4; ++e) {
+        const float re = acc[0][n][e] - acc[1][n][e], im = acc[2][n][e] - acc[0][n][e] - acc[1][n][e];
+        acc[0][n][e] = re;
+        acc[1][n][e] = im;
+        n2 += re * re + im * im;  // zero in the padding
+      }
+    inv = rsqrtf(fmaxf(block_sum<T>(n2, red), kNormFloor));  // every warp has read the old planes
+    // entries (r, 2t) and (r, 2t + 1) of each n-tile, r = r0 + g (e = 0, 1)
+    // and r0 + g + 8 (e = 2, 3): adjacent, 8-byte aligned (skew is even)
 #pragma unroll
-    for (int p = 0; p < T; ++p)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int q = 0; q < T; ++q) st(s, (ty + kGrid * p) * NP + tx + kGrid * q, inv * acc[p][q]);
+      for (int h = 0; h < 2; ++h) {
+        const int a = a0 - t + h * 8 * LD + 8 * n + 2 * t;
+        const float re0 = inv * acc[0][n][2 * h], re1 = inv * acc[0][n][2 * h + 1];
+        const float im0 = inv * acc[1][n][2 * h], im1 = inv * acc[1][n][2 * h + 1];
+        *reinterpret_cast<float2*>(pl[0] + a) = make_float2(re0, re1);
+        *reinterpret_cast<float2*>(pl[1] + a) = make_float2(im0, im1);
+        *reinterpret_cast<float2*>(pl[2] + a) = make_float2(re0 + im0, re1 + im1);
+      }
     __syncthreads();
   }
-  for (int k = threadIdx.x; k < N * N; k += kLargeThreads) out[off + k] = s[(k / N) * NP + k % N];
+  for (int k = threadIdx.x; k < N * N; k += S::THREADS) {
+    const int a = (k / N) * LD + k % N + skew(k / N);
+    out[off + k] = make_float2(pl[0][a], pl[1][a]);
+  }
+}
+
+template <int T>
+int launch_tc(const float2* E, float2* out, int B, int N, int iters, cudaStream_t stream) {
+  constexpr int bytes = TcShape<T>::BYTES;
+  if (bytes > 48 * 1024) {  // above the default limit only after the opt-in
+    const cudaError_t err =
+        cudaFuncSetAttribute(matpow_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  matpow_tc_kernel<T><<<B, TcShape<T>::THREADS, bytes, stream>>>(E, out, N, iters);
+  return (int)cudaGetLastError();
 }
 
 // N > 64: the power in device memory, ping-ponging between out and work
@@ -221,7 +344,7 @@ __global__ void __launch_bounds__(kLargeThreads)
 
   float n2 = 0.f;
   for (int k = threadIdx.x; k < NN; k += kLargeThreads) n2 += norm2(ld(e, k));
-  float inv = rsqrtf(fmaxf(block_sum(n2, red), kNormFloor));
+  float inv = rsqrtf(fmaxf(block_sum<kLargeThreads / 32>(n2, red), kNormFloor));
   for (int k = threadIdx.x; k < NN; k += kLargeThreads) st(src, k, inv * ld(e, k));
   __syncthreads();
 
@@ -269,7 +392,7 @@ __global__ void __launch_bounds__(kLargeThreads)
             }
           }
       }
-    inv = rsqrtf(fmaxf(block_sum(n2, red), kNormFloor));
+    inv = rsqrtf(fmaxf(block_sum<kLargeThreads / 32>(n2, red), kNormFloor));
     // each thread rescales the entries it wrote itself
     for (int i0 = 0; i0 < N; i0 += kOutTile)
       for (int j0 = 0; j0 < N; j0 += kOutTile)
@@ -322,13 +445,9 @@ extern "C" int qmps_matpow_large(const void* E, void* out, void* work, int B, in
   float2* o = (float2*)out;
   cudaStream_t s = (cudaStream_t)stream;
   if (N <= 16 || (N > 64 && work == nullptr)) return (int)cudaErrorInvalidValue;
-  if (N <= 32)
-    qmps::matpow_shared_kernel<2><<<B, qmps::kLargeThreads, 0, s>>>(e, o, N, iters);
-  else if (N <= 48)
-    qmps::matpow_shared_kernel<3><<<B, qmps::kLargeThreads, 0, s>>>(e, o, N, iters);
-  else if (N <= 64)
-    qmps::matpow_shared_kernel<4><<<B, qmps::kLargeThreads, 0, s>>>(e, o, N, iters);
-  else
-    qmps::matpow_global_kernel<<<B, qmps::kLargeThreads, 0, s>>>(e, o, (float2*)work, N, iters);
+  if (N <= 32) return qmps::launch_tc<2>(e, o, B, N, iters, s);
+  if (N <= 48) return qmps::launch_tc<3>(e, o, B, N, iters, s);
+  if (N <= 64) return qmps::launch_tc<4>(e, o, B, N, iters, s);
+  qmps::matpow_global_kernel<<<B, qmps::kLargeThreads, 0, s>>>(e, o, (float2*)work, N, iters);
   return (int)cudaGetLastError();
 }

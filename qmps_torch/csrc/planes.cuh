@@ -162,6 +162,58 @@ __device__ __forceinline__ c32 chirp(int which, int j) {
 
 enum SolveMethod { kSquaring = 0, kPower = 1 };
 
+// m <- m^2 / ||m^2||_F, iters times (the squaring chain of _solve_planes)
+__device__ __forceinline__ void squarings4(c32 m[16], int iters) {
+  for (int it = 0; it < iters; ++it) {
+    c32 r[16];
+    matsq4(m, r);
+    normalize<16>(r);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) m[k] = r[k];
+  }
+}
+
+// The eigenvector read off a converged power m (pallas_power.py::
+// _extract_eigpair): m c for the two chirps, the larger of the two,
+// normalised.  kDagger reads m^dag instead, the power of e^dag: its
+// dominant right eigenvector is e's left one (kernels/pallas_power.py::
+// _left_vector), with no second squaring chain.
+template <bool kDagger>
+__device__ __forceinline__ void chirp_read4(const c32 m[16], c32 v[4]) {
+  c32 v1[4], v2[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v1[i] = mk(0.f, 0.f);
+    v2[i] = mk(0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const c32 x = kDagger ? conj(m[j * 4 + i]) : m[i * 4 + j];
+      cfma(v1[i], x, chirp(0, j));
+      cfma(v2[i], x, chirp(1, j));
+    }
+  }
+  float n1 = 0.f, n2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    n1 += norm2(v1[i]);
+    n2 += norm2(v2[i]);
+  }
+  const bool use1 = n1 >= n2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = use1 ? v1[i] : v2[i];
+  normalize<4>(v);
+}
+
+// The Rayleigh quotient lam = v^dag (e v), v unit norm
+__device__ __forceinline__ c32 rayleigh4(const c32 e[16], const c32 v[4]) {
+  c32 w[4];
+  matvec4(e, v, w);
+  c32 lam = mk(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cfma(lam, conj(v[i]), w[i]);
+  return lam;
+}
+
 // Dominant right eigenpair of one 4x4 complex matrix e: lam and unit v.
 //
 // kSquaring (pallas_power.py::_solve_planes): m <- m^2 / ||m^2||_F, iters
@@ -184,37 +236,10 @@ __device__ __forceinline__ void solve4(const c32 e[16], int iters, int method, c
     c32 m[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k) m[k] = e[k];
-    for (int it = 0; it < iters; ++it) {
-      c32 r[16];
-      matsq4(m, r);
-      normalize<16>(r);
-#pragma unroll
-      for (int k = 0; k < 16; ++k) m[k] = r[k];
-    }
-    c32 c[4], v1[4], v2[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = chirp(0, j);
-    matvec4(m, c, v1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = chirp(1, j);
-    matvec4(m, c, v2);
-    float n1 = 0.f, n2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      n1 += norm2(v1[i]);
-      n2 += norm2(v2[i]);
-    }
-    const bool use1 = n1 >= n2;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = use1 ? v1[i] : v2[i];
-    normalize<4>(v);
+    squarings4(m, iters);
+    chirp_read4<false>(m, v);
   }
-  // Rayleigh quotient lam = v^dag (e v), v unit norm
-  c32 w[4];
-  matvec4(e, v, w);
-  lam = mk(0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) cfma(lam, conj(v[i]), w[i]);
+  lam = rayleigh4(e, v);
 }
 
 }  // namespace qmps

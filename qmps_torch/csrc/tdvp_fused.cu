@@ -6,8 +6,10 @@
 //
 //   AA = A A, BB = B B (two-site blocks), WAA[s] = sum_t W[s, t] AA[t]
 //   E[(i j), (k l)] = sum_s WAA[s, i, k] conj(BB[s, j, l])
-//   (lam, v) = dominant right eigenpair of E (planes.cuh::solve4); with
-//              with_left, u = that of E^dag, the left eigenvector of E
+//   (lam, v) = dominant right eigenpair of E by squaring (planes.cuh::
+//              squarings4, chirp_read4); with with_left, u that of E^dag,
+//              the left eigenvector of E, read off the conjugate transpose
+//              of the same power (no second chain: (E^dag)^2 = (E^2)^dag)
 //   objective = -|lam| (taken by the PyTorch wrapper)
 //
 // and the adjoint of -|lam|: K = coef conj(u) v^T with
@@ -22,17 +24,32 @@
 // needed an SMEM and a VMEM variant).  A shared W's 16 entries are the
 // same addresses for every thread and stay in L1.
 //
-// What bounds them on an H100: arithmetic latency in registers, not memory.
-// K4 reads 256 bytes (128 with a shared W) and writes 72 per element
-// against ~200 complex multiply-adds of builds and 2 x 48 dependent
-// squarings of the 4x4 solve (~6,000 complex multiply-adds); K5 reads ~330
-// bytes and writes 256 against ~500 complex multiply-adds with no loop.  At
-// the quench's batch (64 trajectories) each is two 32-thread blocks, so its
-// time is one thread's dependent chain.  K5 holds A, B, v, K's row factor
-// conj(u) coef, AA, P, C and Q (~100 complex values at the peak): BB and
-// WAA are built in scopes that end once P and C are formed, K is never
-// stored (its entries are formed as cu[r] v[c] where used), and W is
-// re-read from memory instead of held.
+// What bounds K4 on an H100: operations at large batches, one element's
+// dependent chain at small ones.  It reads 256 bytes (128 with a shared W)
+// and writes 72 per element against ~28,000 float32 flops (chip_smoke.py's
+// kernel_work), 48 squarings of a 4x4 complex matrix with a norm, a
+// reduction and an rsqrt after each.  Its design:
+// - one chain: the JAX kernel, and this one before, squared E^dag in a
+//   second chain for u, doubling the work;
+// - a quad of lanes an element up to kQuadMaxB elements (the quench's
+//   batch is 64: two 32-thread blocks of one thread an element ran one
+//   thread's 96-squaring chain on 2 of 132 SMs).  Lane r owns row r of E
+//   and of its power; each squaring fetches the other rows with width-4
+//   __shfl_sync, forms row r of M^2 and takes the Frobenius norm as a
+//   two-step butterfly, so a chain step is 16 multiply-adds, not 64.  The
+//   reads off the power (v, u, lam) gather the whole matrix on every lane
+//   once.  Above kQuadMaxB the card is full and the 34 shuffles a squaring
+//   cost more than they save: one thread an element, the whole chain in
+//   registers.  Measured (qmps_torch/kernel_ab.py, NVIDIA H100 80GB HBM3,
+//   700 W): quad / thread 0.0130 / 0.0193 ms at 64, 0.0171 / 0.0204 at
+//   8,192, 0.0220 / 0.0204 at 12,288, 0.1062 / 0.0628 at 65,536.
+//
+// K5 reads ~330 bytes and writes 256 against ~500 complex multiply-adds with
+// no loop, one thread an element.  It holds A, B, v, K's row factor conj(u)
+// coef, AA, P, C and Q (~100 complex values at the peak): BB and WAA are
+// built in scopes that end once P and C are formed, K is never stored (its
+// entries are formed as cu[r] v[c] where used), and W is re-read from memory
+// instead of held.
 #include "planes.cuh"
 
 namespace qmps {
@@ -50,6 +67,7 @@ __device__ __forceinline__ void build_WAA(const float2* w, const c32 aa[16], c32
     }
 }
 
+// K4, one thread an element (large batches)
 __global__ void __launch_bounds__(kThreads)
     tdvp_fwd_kernel(const float2* __restrict__ A, const float2* __restrict__ Bm,
                     const float2* __restrict__ W, int w_stride, float2* __restrict__ lam_out,
@@ -70,23 +88,104 @@ __global__ void __launch_bounds__(kThreads)
     build_AA(bt, bb);
     build_E_mixed(waa, bb, e);
   }
-  c32 lam, v[4];
-  solve4(e, iters, kSquaring, lam, v);
-  st(lam_out, b, lam);
+  c32 m[16], v[4];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) m[k] = e[k];
+  squarings4(m, iters);
+  chirp_read4<false>(m, v);
+  st(lam_out, b, rayleigh4(e, v));
 #pragma unroll
   for (int i = 0; i < 4; ++i) st(v_out + (size_t)b * 4, i, v[i]);
   if (with_left) {
-    // E^dag[(k l), (i j)] = conj(E[(i j), (k l)]): a register transpose;
-    // its dominant right eigenvector is E's left one (tdvp_fused.py:146-147)
-    c32 ed[16], lam_l, u[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) ed[r * 4 + c] = conj(e[c * 4 + r]);
-    solve4(ed, iters, kSquaring, lam_l, u);
+    c32 u[4];
+    chirp_read4<true>(m, u);  // off M^dag: no chain on E^dag
 #pragma unroll
     for (int i = 0; i < 4; ++i) st(u_out + (size_t)b * 4, i, u[i]);
   }
+}
+
+// K4 over a quad of lanes an element (small batches), 8 elements a block
+constexpr int kQuadThreads = 32;
+
+// row k of the quad's matrix, whose row q lane q holds (width-4 shuffles)
+__device__ __forceinline__ c32 quad_get(c32 x, int k) {
+  return mk(__shfl_sync(0xffffffffu, x.re, k, 4), __shfl_sync(0xffffffffu, x.im, k, 4));
+}
+
+// the whole 4x4 matrix on every lane of the quad
+__device__ __forceinline__ void quad_gather(const c32 row[4], c32 full[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) full[k * 4 + c] = quad_get(row[c], k);
+}
+
+__global__ void __launch_bounds__(kQuadThreads)
+    tdvp_fwd_quad_kernel(const float2* __restrict__ A, const float2* __restrict__ Bm,
+                         const float2* __restrict__ W, int w_stride, float2* __restrict__ lam_out,
+                         float2* __restrict__ v_out, float2* __restrict__ u_out, int B, int iters,
+                         int with_left) {
+  const int r = threadIdx.x & 3;  // this lane's row (i j) = (r >> 1, r & 1) of E and its power
+  const long long elem = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const bool live = elem < B;
+  // lanes past B compute on the last element (every lane takes part in the
+  // shuffles) and store nothing
+  const size_t b = live ? (size_t)elem : (size_t)(B - 1);
+  c32 m[4];  // row r of E, then of its power
+  {
+    // AA, BB and WAA whole on each lane (~150 multiply-adds, against 48 x 16
+    // in the chain), then E's row r: the sums of build_E_mixed in its order
+    c32 a[8], bt[8], aa[16], waa[16], bb[16];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      a[k] = ld(A + b * 8, k);
+      bt[k] = ld(Bm + b * 8, k);
+    }
+    build_AA(a, aa);
+    build_WAA(W + b * w_stride, aa, waa);
+    build_AA(bt, bb);
+    const bool i1 = r >> 1, j1 = r & 1;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        c32 acc = mk(0.f, 0.f);
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          cfma(acc, i1 ? waa[s * 4 + 2 + k] : waa[s * 4 + k], conj(j1 ? bb[s * 4 + 2 + l] : bb[s * 4 + l]));
+        m[k * 2 + l] = acc;
+      }
+  }
+  c32 e[16];
+  quad_gather(m, e);
+  for (int it = 0; it < iters; ++it) {
+    // row r of M^2 = sum_k M[r, k] M[k, :], k in matsq4's order
+    c32 p[4] = {mk(0.f, 0.f), mk(0.f, 0.f), mk(0.f, 0.f), mk(0.f, 0.f)};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cfma(p[c], m[k], quad_get(m[c], k));
+    float n2 = norm2(p[0]) + norm2(p[1]) + norm2(p[2]) + norm2(p[3]);
+    n2 += __shfl_xor_sync(0xffffffffu, n2, 1);
+    n2 += __shfl_xor_sync(0xffffffffu, n2, 2);
+    const float inv = rsqrtf(fmaxf(n2, 1e-30f));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) m[c] = inv * p[c];
+  }
+  // the reads off the power, whole on every lane: a few hundred flops once
+  c32 mf[16], v[4], u[4];
+  quad_gather(m, mf);
+  chirp_read4<false>(mf, v);
+  if (with_left) chirp_read4<true>(mf, u);  // off M^dag: no chain on E^dag
+  const c32 lam = rayleigh4(e, v);
+  if (!live) return;
+  if (r == 0) st(lam_out, b, lam);
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c == r) {
+      st(v_out + b * 4, c, v[c]);
+      if (with_left) st(u_out + b * 4, c, u[c]);
+    }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -195,15 +294,27 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace qmps
 
+// The largest batch K4 runs over quads of lanes; above it, one thread an
+// element: the crossover lies between 8,192 and 12,288 (the note at the top).
+constexpr int kQuadMaxB = 8192;
+
 // A, B (B, 2, 2, 2) complex64 and W ((4, 4) with w_stride 0, or (B, 4, 4)
 // with w_stride 16) -> lam (B,), v (B, 4) and, if with_left, u (B, 4)
 // complex64 (u may be null otherwise).  Returns cudaGetLastError().
 extern "C" int qmps_tdvp_fwd(const void* A, const void* Bm, const void* W, int w_stride, void* lam,
                              void* v, void* u, int B, int iters, int with_left, void* stream) {
-  const int grid = (B + qmps::kThreads - 1) / qmps::kThreads;
-  qmps::tdvp_fwd_kernel<<<grid, qmps::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)A, (const float2*)Bm, (const float2*)W, w_stride, (float2*)lam, (float2*)v,
-      (float2*)u, B, iters, with_left);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= kQuadMaxB) {
+    const int grid = (4 * B + qmps::kQuadThreads - 1) / qmps::kQuadThreads;
+    qmps::tdvp_fwd_quad_kernel<<<grid, qmps::kQuadThreads, 0, s>>>(
+        (const float2*)A, (const float2*)Bm, (const float2*)W, w_stride, (float2*)lam, (float2*)v,
+        (float2*)u, B, iters, with_left);
+  } else {
+    const int grid = (B + qmps::kThreads - 1) / qmps::kThreads;
+    qmps::tdvp_fwd_kernel<<<grid, qmps::kThreads, 0, s>>>(
+        (const float2*)A, (const float2*)Bm, (const float2*)W, w_stride, (float2*)lam, (float2*)v,
+        (float2*)u, B, iters, with_left);
+  }
   return (int)cudaGetLastError();
 }
 

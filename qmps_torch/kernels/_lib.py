@@ -56,8 +56,8 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _sources() -> list[Path]:
-    return sorted(p for p in SRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+def _sources(src_dir: Path = SRC_DIR) -> list[Path]:
+    return sorted(p for p in src_dir.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
 def _nvcc() -> str:
@@ -74,28 +74,28 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library for the sources in ``src_dir`` lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for p in _sources():
+    for p in _sources(src_dir):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libqmps_torch_{h.hexdigest()[:16]}.so"
+    return build_dir / f"libqmps_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the sources if their library is missing; returns (path, the
-    compiler's log, kept beside the library: ``-Xptxas -v`` registers and
-    spills per kernel)."""
-    out = library_path()
+def build(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
+    """Compile the sources of ``src_dir`` (the package's own by default) if
+    their library is missing; returns (path, the compiler's log, kept beside
+    the library: ``-Xptxas -v`` registers and spills per kernel)."""
+    out = library_path(src_dir, build_dir)
     log = out.with_suffix(".log")
     if out.exists():
         return out, log.read_text() if log.exists() else ""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         jobs = []
-        for src in (p for p in _sources() if p.suffix == ".cu"):
+        for src in (p for p in _sources(src_dir) if p.suffix == ".cu"):
             obj = Path(tmp) / f"{src.stem}.o"
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
@@ -117,17 +117,21 @@ def build() -> tuple[Path, str]:
     return out, text
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built library with the C entry points' signatures set."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if need be."""
     global _lib
     if _lib is None:
-        path, _ = build()
-        handle = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+        _lib = load(build()[0])
     return _lib
 
 

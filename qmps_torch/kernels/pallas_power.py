@@ -12,10 +12,13 @@ For a CUDA tensor (complex64) it launches hand-written kernels:
   ``qmps_tpu/kernels/pallas_power.py::_squaring_kernel`` and
   ``::_power_kernel``;
 - 4 < N <= 16 (D = 3, 4) and N > 16 (D >= 5): ``csrc/matpow.cu`` (K7, one
-  warp a matrix; K8, one block a matrix), which replace ``::_matpow_kernel_looped``
+  warp a matrix on the CUDA cores; K8, one block a matrix, up to N = 64
+  on the tensor cores in 3xTF32), which replace ``::_matpow_kernel_looped``
   and ``::_squaring_kernel_mxu``.  They return the normalised power
   E^(2^iters); ``_extract_eigpair`` reads (lam, v) off it in plain PyTorch,
-  as the JAX package does in XLA.
+  as the JAX package does in XLA, and ``_left_vector`` reads the left
+  eigenvector off the same power's conjugate transpose, where the JAX
+  package squares E^dag in a second chain.
 For a CPU tensor the plain versions below run the same algorithms at the
 tensor's own precision.
 """
@@ -65,26 +68,46 @@ def _normalised(M: torch.Tensor) -> torch.Tensor:
     return M * _rsqrt_clamped(_sq_norm(M, (-2, -1)))
 
 
-def _extract_eigpair(E: torch.Tensor, M: torch.Tensor):
-    """(lam (B,), v (B, N)) from the converged power M of E
-    (pallas_power.py::_extract_eigpair): v = M c for the two chirps, the
-    larger wins, normalised; lam = v^dag E v.  A zero M gives v = 0, lam = 0."""
-    V = M @ _chirp_matrix(E.shape[-1], E.dtype, E.device)  # (B, N, 2)
+def _chirp_read(M: torch.Tensor) -> torch.Tensor:
+    """The dominant eigenvector read off a converged power M (B, N, N):
+    M c for the two chirps, the larger wins, normalised (a zero M gives 0)."""
+    V = M @ _chirp_matrix(M.shape[-1], M.dtype, M.device)  # (B, N, 2)
     n2 = _sq_norm(V, -2)
     v = torch.where(n2[..., 0] >= n2[..., 1], V[..., 0], V[..., 1])
-    v = v * _rsqrt_clamped(_sq_norm(v, -1))
+    return v * _rsqrt_clamped(_sq_norm(v, -1))
+
+
+def _extract_eigpair(E: torch.Tensor, M: torch.Tensor):
+    """(lam (B,), v (B, N)) from the converged power M of E
+    (pallas_power.py::_extract_eigpair): v the chirp read of M; lam = v^dag
+    E v.  A zero M gives v = 0, lam = 0."""
+    v = _chirp_read(M)
     lam = (v.conj() * (E @ v[..., None])[..., 0]).sum(-1)  # Rayleigh, v unit norm
     return lam, v
+
+
+def _left_vector(M: torch.Tensor) -> torch.Tensor:
+    """The left eigenvector w of E (E^dag w = conj(lam) w) from the power M
+    of E alone: every normalised power of E^dag is the conjugate transpose
+    of the same power of E ((E^dag)^2 = (E^2)^dag, ||X^dag||_F = ||X||_F),
+    so w is the chirp read of M^dag, the vector that a second squaring
+    chain on E^dag would give."""
+    return _chirp_read(M.mH)
+
+
+def _squarings(M: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` times M <- M M / ||M M||_F per matrix: the squaring chain
+    of every plain solve (K1, K4, K7, K8)."""
+    for _ in range(iters):
+        M = _normalised(M @ M)
+    return M
 
 
 def _dominant_eig_plain(E: torch.Tensor, iters: int = 48, method: str = "squaring"):
     """Plain PyTorch version of the K1 kernel: (B, N, N) complex -> (lam
     (B,), v (B, N)), the same steps as the kernel."""
     if method == "squaring":
-        M = E
-        for _ in range(iters):
-            M = _normalised(M @ M)
-        return _extract_eigpair(E, M)
+        return _extract_eigpair(E, _squarings(E, iters))
     if method != "power":
         raise ValueError(f"method must be 'squaring' or 'power', got {method!r}")
     dither = torch.tensor(
@@ -103,10 +126,7 @@ def _matrix_power_plain(E: torch.Tensor, iters: int) -> torch.Tensor:
     """Plain PyTorch version of K7 and K8: E / ||E||_F, then ``iters`` times
     M <- M M / ||M M||_F per matrix (the order of steps of
     ``_matpow_kernel_looped``), at the tensor's own precision."""
-    M = _normalised(E)
-    for _ in range(iters):
-        M = _normalised(M @ M)
-    return M
+    return _squarings(_normalised(E), iters)
 
 
 def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str):
@@ -152,6 +172,17 @@ def _matrix_power_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
     return M
 
 
+def _matrix_power(E: torch.Tensor, iters: int) -> torch.Tensor:
+    """The normalised power E^(2^iters) of a (B, N, N) batch, N > 4: the
+    plain version for a CPU tensor, K7 or K8 for a CUDA one."""
+    return _matrix_power_plain(E, iters) if E.device.type == "cpu" else _matrix_power_cuda(E, iters)
+
+
+def _check_batch(E: torch.Tensor) -> None:
+    if E.dim() != 3 or E.shape[-1] != E.shape[-2]:
+        raise ValueError(f"expected a (B, N, N) batch, got {tuple(E.shape)}")
+
+
 def dominant_eig_batched(E: torch.Tensor, iters: int = 48, method: str = "squaring"):
     """(B, N, N) complex -> (lam (B,), v (B, N)): dominant eigenvalue and
     unit right eigenvector (arbitrary phase) of each matrix.
@@ -162,8 +193,7 @@ def dominant_eig_batched(E: torch.Tensor, iters: int = 48, method: str = "squari
     """
     if method not in _METHODS:
         raise ValueError(f"method must be 'squaring' or 'power', got {method!r}")
-    if E.dim() != 3 or E.shape[-1] != E.shape[-2]:
-        raise ValueError(f"expected a (B, N, N) batch, got {tuple(E.shape)}")
+    _check_batch(E)
     N = E.shape[-1]
     if N <= 4:
         if E.device.type == "cpu":
@@ -173,8 +203,7 @@ def dominant_eig_batched(E: torch.Tensor, iters: int = 48, method: str = "squari
         return _dominant_eig_cuda(E, iters, method)
     if method != "squaring":
         raise ValueError("the N > 4 paths implement method='squaring' only")
-    M = _matrix_power_plain(E, iters) if E.device.type == "cpu" else _matrix_power_cuda(E, iters)
-    return _extract_eigpair(E, M)
+    return _extract_eigpair(E, _matrix_power(E, iters))
 
 
 class _DominantEigvalBatched(torch.autograd.Function):
@@ -182,12 +211,20 @@ class _DominantEigvalBatched(torch.autograd.Function):
     def forward(ctx, E, iters):
         if not ctx.needs_input_grad[0]:
             return dominant_eig_batched(E, iters)[0]
-        # one solve on [E, E^dag] gives v and w (E^dag w = conj(lam) w)
-        B = E.shape[0]
-        lam, v = dominant_eig_batched(torch.cat([E, E.mH]), iters)
-        ctx.save_for_backward(v[:B], v[B:])
+        _check_batch(E)
+        if E.shape[-1] > 4:
+            # one power of E gives v and w (E^dag w = conj(lam) w)
+            M = _matrix_power(E, iters)
+            lam, v = _extract_eigpair(E, M)
+            w = _left_vector(M)
+        else:
+            # K1 returns eigenpairs, not powers: one solve of [E, E^dag]
+            B = E.shape[0]
+            lam, v = dominant_eig_batched(torch.cat([E, E.mH]), iters)
+            lam, v, w = lam[:B], v[:B], v[B:]
+        ctx.save_for_backward(v, w)
         ctx.e_type = E.dtype
-        return lam[:B]
+        return lam
 
     @staticmethod
     @once_differentiable
@@ -204,8 +241,9 @@ def dominant_eigval_batched(E: torch.Tensor, iters: int = 48) -> torch.Tensor:
     """Dominant eigenvalues of a (B, N, N) complex batch, differentiable.
 
     Forward: ``dominant_eig_batched`` (on the card K1, K7 or K8 by N); when
-    a gradient will be taken, one solve of [E, E^dag] gives the right and
-    left eigenvectors at once.  Backward: the rank-1 implicit adjoint
+    a gradient will be taken at N > 4, one power of E gives the right
+    eigenvector and, through its conjugate transpose, the left one (at N = 4
+    one K1 solve of [E, E^dag]).  Backward: the rank-1 implicit adjoint
     dlam = (w^dag dE v) / (w^dag v), no further solve.
     """
     return _DominantEigvalBatched.apply(E, iters)

@@ -7,7 +7,7 @@ qmps/new_time_evolve.py:193-221):
   WAA[s, i, j] = sum_t W[s, t] AA[t, i, j]
   E[(i j), (k l)] = sum_s WAA[s, i, k] conj(BB[s, j, l])
   (lam, v) = dominant right eigenpair of E, w that of E^dag (the left
-             eigenvector of E)
+             eigenvector of E), both read off one squaring chain of E
   objective = -|lam|
 
 The gradient is the rank-1 implicit adjoint of
@@ -31,7 +31,7 @@ from torch.autograd.function import once_differentiable
 from ..mps.imps import merge
 from . import _lib
 from .energy_fused import _aa_adjoint
-from .pallas_power import _dominant_eig_plain
+from .pallas_power import _extract_eigpair, _left_vector, _squarings
 
 __all__ = ["tdvp_objective_fused"]
 
@@ -51,11 +51,12 @@ def _build(As, Bs, Wb):
 
 def _fwd_plain(As, Bs, Wb, iters, with_left):
     """Plain version of K4: -> lam (B,), v (B, 4) and, with ``with_left``,
-    w (B, 4) (else None)."""
+    w (B, 4) (else None), w read off the conjugate transpose of the same
+    power (``_left_vector``; the JAX kernel squares E^dag a second time)."""
     _, _, _, E = _build(As, Bs, Wb)
-    lam, v = _dominant_eig_plain(E, iters)
-    w = _dominant_eig_plain(E.mH, iters)[1] if with_left else None
-    return lam, v, w
+    M = _squarings(E, iters)  # one chain for both vectors, as K4 squares
+    lam, v = _extract_eigpair(E, M)
+    return lam, v, _left_vector(M) if with_left else None
 
 
 def _bwd_plain(As, Bs, Wb, lam, v, u, ct):

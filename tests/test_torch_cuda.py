@@ -25,7 +25,8 @@ from qmps_torch.kernels import tdvp_fused as tdf
 from qmps_torch.kernels.brickwork_fast import manifold_overlap_batched
 from qmps_torch.kernels.brickwork_pallas import manifold_overlap_pallas
 from qmps_torch.kernels.pallas_power import dominant_eig_batched
-from qmps_torch.objectives.overlap import tdvp_objective, tdvp_objective_pallas
+from qmps_torch.mps.transfer import transfer_dense
+from qmps_torch.objectives.overlap import mixed_transfer_with_gate, tdvp_objective, tdvp_objective_pallas
 from qmps_torch.parallel.sweep import sweep_ground_states_fused, tfim_matrix
 
 
@@ -259,3 +260,59 @@ def test_tdvp_objective_d4_on_card():
     err = np.abs(to_np(Bg.grad) - to_np(B64.grad)).reshape(B, -1).max(1)
     scale = np.maximum(1.0, np.abs(to_np(B64.grad)).reshape(B, -1).max(1))
     assert np.all(err <= 2e-4 * scale), (err / scale).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [25, 36, 49, 64])
+def test_k8_tensor_cores_match_plain(N):
+    """K8 on the tensor cores (3xTF32; padded to 32, 48, 64, 64: every
+    layout) against the complex128 plain version on D = 5..8 TDVP transfer
+    matrices and one zero matrix: lam to 2e-5, v and the left vector read
+    off the same power up to phase to 1e-4; one launch."""
+    dev = require_cuda()
+    D, B = int(round(N ** 0.5)), 300
+    rng = np.random.default_rng(40 + N)
+    A = left_canonical(rng, B, D)
+    Bt = nearest_isometry(A + 0.03 * (rng.standard_normal(A.shape) + 1j * rng.standard_normal(A.shape)))
+    W = torch.linalg.matrix_exp(-1j * tfim_matrix(torch.from_numpy(rng.uniform(0.1, 0.4, B))) * 0.04)
+    E = transfer_dense(*mixed_transfer_with_gate(*(torch.as_tensor(t) for t in (A, Bt, W))))
+    E[7] = 0
+    E = E.to(dev, torch.complex64).contiguous()
+    _lib.reset_launches()
+    M = tpp._matrix_power_cuda(E, 48)
+    torch.cuda.synchronize()
+    assert _lib.launches["matpow_large"] == 1
+    lam, v = tpp._extract_eigpair(E.to(torch.complex128), M.to(torch.complex128))
+    w = tpp._left_vector(M.to(torch.complex128))
+    E64 = E.cpu().to(torch.complex128)
+    M_p = tpp._matrix_power_plain(E64, 48)
+    lam_p, v_p = tpp._extract_eigpair(E64, M_p)
+    w_p = tpp._left_vector(M_p)
+    lam, v, w, lam_p, v_p, w_p = (to_np(t) for t in (lam, v, w, lam_p, v_p, w_p))
+    assert lam[7] == 0 and not v[7].any() and not w[7].any()
+    np.testing.assert_allclose(lam, lam_p, atol=2e-5)
+    keep = np.arange(B) != 7
+    np.testing.assert_allclose(phase_aligned(v[keep], v_p[keep]), v_p[keep], atol=1e-4)
+    np.testing.assert_allclose(phase_aligned(w[keep], w_p[keep]), w_p[keep], atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 65536])
+def test_k4_layouts_match_plain(B):
+    """K4 at the quench's batch (64, a quad of lanes an element) and at
+    65,536 (one thread an element) against the plain version at complex128,
+    with the left vector: the tolerances of chip_smoke.tdvp_check (-|lam|
+    and lam 2e-5, v and u up to phase 1e-4); one launch."""
+    dev = require_cuda()
+    A, Bt, W = _tdvp_inputs(B, 9, True)
+    A32, B32, W32 = (t.to(dev, torch.complex64) for t in (A, Bt, W))
+    _lib.reset_launches()
+    lam, v, u = tdf._fwd_cuda(A32, B32, W32, 48, True)
+    torch.cuda.synchronize()
+    assert _lib.launches["tdvp_fwd"] == 1
+    lam_p, v_p, u_p = tdf._fwd_plain(*(t.to(torch.complex128) for t in (A32, B32, W32)), 48, True)
+    lam, v, u, lam_p, v_p, u_p = (to_np(t) for t in (lam, v, u, lam_p, v_p, u_p))
+    np.testing.assert_allclose(np.abs(lam), np.abs(lam_p), atol=2e-5)
+    np.testing.assert_allclose(lam, lam_p, atol=2e-5)
+    np.testing.assert_allclose(phase_aligned(v, v_p), v_p, atol=1e-4)
+    np.testing.assert_allclose(phase_aligned(u, u_p), u_p, atol=1e-4)

@@ -130,16 +130,48 @@ def test_eigval_gradient_matches_jax_and_dense():
 
 
 def test_eigval_solves_once_with_both_vectors(monkeypatch):
-    """With a gradient the forward solves [E, E^dag] once; without, E alone:
-    both give the same eigenvalues."""
+    """With a gradient the forward squares E alone, once, and reads both
+    eigenvectors off that power (not a power of [E, E^dag] on 2B matrices);
+    without one, E alone too: both give the same eigenvalues."""
     E = torch.from_numpy(_random(16, B=4, seed=4))
-    calls, solve = [], tpp.dominant_eig_batched
-    monkeypatch.setattr(tpp, "dominant_eig_batched", lambda x, iters: calls.append(x.shape[0]) or solve(x, iters))
+    calls, power = [], tpp._matrix_power_plain
+    monkeypatch.setattr(tpp, "_matrix_power_plain", lambda x, iters: calls.append(x.shape[0]) or power(x, iters))
     with torch.no_grad():
         lam0 = tpp.dominant_eigval_batched(E)
     lam1 = tpp.dominant_eigval_batched(E.clone().requires_grad_())
-    assert calls == [4, 8]
+    assert calls == [4, 4]
     np.testing.assert_allclose(to_np(lam1), to_np(lam0), atol=1e-12)
+
+
+@pytest.mark.parametrize("N", [9, 16, 64])
+def test_saved_left_vector_matches_jax(N):
+    """The left eigenvector the forward saves, read off the power's
+    conjugate transpose, against the w of JAX's forward, which squares
+    [E, E^dag] in interpret mode (float32 kernels): up to phase, 1e-5."""
+    E = _random(N, seed=20 + N).astype(np.complex64)
+    lam = tpp.dominant_eigval_batched(torch.from_numpy(E).requires_grad_(), 48)
+    v, w = lam.grad_fn.saved_tensors
+    lam_j, (v_j, w_j, _) = jpp._dom_eigval_batched_fwd(jnp.asarray(E), 48, True)
+    np.testing.assert_allclose(to_np(lam), np.asarray(lam_j), atol=2e-5)
+    np.testing.assert_allclose(phase_aligned(to_np(v), np.asarray(v_j)), np.asarray(v_j), atol=1e-5)
+    print(f"N = {N}: |w - JAX's w| {np.abs(phase_aligned(to_np(w), np.asarray(w_j)) - np.asarray(w_j)).max():.3g}")
+    np.testing.assert_allclose(phase_aligned(to_np(w), np.asarray(w_j)), np.asarray(w_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("N", [4, 9, 64])
+def test_left_vector_off_the_power_equals_a_second_chain(N):
+    """complex128: w read off M^dag equals the dominant eigenvector of a
+    separate squaring chain on E^dag (1e-12 up to phase) and is E's left
+    eigenvector (w^dag E = lam w^dag, 1e-10)."""
+    E = torch.from_numpy(_random(N, seed=30 + N))
+    M = tpp._matrix_power_plain(E, 48)
+    lam, _ = tpp._extract_eigpair(E, M)
+    w = tpp._left_vector(M)
+    w2 = tpp._extract_eigpair(E.mH, tpp._matrix_power_plain(E.mH, 48))[1]
+    diff = np.abs(phase_aligned(to_np(w), to_np(w2)) - to_np(w2)).max()
+    print(f"N = {N}: |w off M^dag - w of a second chain| {diff:.3g}")
+    np.testing.assert_allclose(phase_aligned(to_np(w), to_np(w2)), to_np(w2), atol=1e-12)
+    np.testing.assert_allclose(to_np((w.conj()[:, None, :] @ E)[:, 0]), to_np(lam[:, None] * w.conj()), atol=1e-10)
 
 
 @pytest.mark.parametrize("batched_w", [False, True])
@@ -159,3 +191,52 @@ def test_tdvp_objective_pallas_larger_D(D, batched_w):
     val.sum().backward()
     gd = jax.grad(lambda b: jnp.sum(_jax_dense(jnp.asarray(As), b, jnp.asarray(W))))(jnp.asarray(Bs))
     np.testing.assert_allclose(to_np(Bt.grad), np.conj(np.asarray(gd)), atol=1e-8)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (PTX cvt.rna.tf32.f32)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_power(E: torch.Tensor, iters: int, split: bool) -> torch.Tensor:
+    """K8's squaring on the tensor cores, emulated: float32 planes R, I,
+    the three real products RR, II and SS (S = R + I) with TF32 operands
+    and float32 sums, re = RR - II, im = SS - RR - II, the Frobenius norm
+    after every squaring.  ``split``: 3xTF32 (x = hi + lo, hi hi + hi lo +
+    lo hi); else one pass on the rounded operands."""
+    def product(X):
+        hi = _tf32(X)
+        if not split:
+            return hi @ hi
+        lo = _tf32(X - hi)
+        return hi @ lo + lo @ hi + hi @ hi
+
+    def normalised(R, I):
+        inv = torch.rsqrt(torch.clamp((R * R + I * I).sum((-2, -1), keepdim=True), min=1e-30))
+        return R * inv, I * inv
+
+    R, I = normalised(E.real.float(), E.imag.float())
+    for _ in range(iters):
+        RR, II, SS = product(R), product(I), product(R + I)
+        R, I = normalised(RR - II, SS - RR - II)
+    return torch.complex(R, I).to(E.dtype)
+
+
+def test_k8_tensor_core_numerics():
+    """Why K8 squares in 3xTF32 and never in one-pass TF32 (ROADMAP,
+    "Numerics follow the reference"): 48 random 64 x 64 matrices, 48
+    squarings, the pair read off each emulated power against the complex128
+    plain version.  3xTF32 stays within 2e-6 in lam and v (up to phase);
+    one-pass TF32 misses the card's 2e-5 gate on lam (chip_smoke.py)."""
+    E = torch.from_numpy(_random(64, B=48, seed=5))
+    lam_p, v_p = tpp._extract_eigpair(E, tpp._matrix_power_plain(E, 48))
+    errs = {}
+    for split in (True, False):
+        lam, v = tpp._extract_eigpair(E, _tf32_power(E, 48, split))
+        errs[split] = (np.abs(to_np(lam - lam_p)).max(),
+                       np.abs(phase_aligned(to_np(v), to_np(v_p)) - to_np(v_p)).max())
+    print(f"3xTF32 lam {errs[True][0]:.3g} v {errs[True][1]:.3g}; one-pass TF32 lam {errs[False][0]:.3g} "
+          f"v {errs[False][1]:.3g}")
+    assert max(errs[True]) < 2e-6
+    assert errs[False][0] > 2e-5

@@ -66,7 +66,7 @@ def test_missing_compiler_raises(monkeypatch):
     nothing (what a CUDA tensor would reach)."""
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
-    monkeypatch.setattr(_lib, "library_path", lambda: _lib.BUILD_DIR / "absent.so")
+    monkeypatch.setattr(_lib, "library_path", lambda *dirs: _lib.BUILD_DIR / "absent.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _lib.build()
 

@@ -15,11 +15,13 @@ import pytest
 import scipy.linalg
 import torch
 
-from _torch_parity import assert_parity, phase_aligned, to_np
+from _torch_parity import assert_parity, left_canonical, nearest_isometry, phase_aligned, to_np
 from qmps_torch.ham.exact import loschmidt_rate
 from qmps_torch.kernels import tdvp_fused as ttf
+from qmps_torch.kernels.pallas_power import _dominant_eig_plain
 from qmps_torch.objectives import overlap as tov
 from qmps_tpu.ham import exact as jexact
+from qmps_tpu.kernels.tdvp_fused import _fused_forward as jax_fused_forward
 from qmps_tpu.kernels.tdvp_fused import tdvp_objective_fused as jax_fused
 from qmps_tpu.objectives.overlap import tdvp_objective as jax_dense
 
@@ -117,6 +119,43 @@ def test_left_vector_only_when_a_gradient_is_taken():
     k = np.argmax(np.abs(lv), axis=1)
     v_np = np.stack([V[b, :, k[b]] for b in range(3)])
     np.testing.assert_allclose(phase_aligned(to_np(v), v_np), v_np, atol=1e-12)
+
+
+def _quench_like(B, seed):
+    """Left-canonical A and B the nearest isometry to A + 0.05 noise (a
+    clear spectral gap), W a random gate: float32 solves are well posed."""
+    rng = np.random.default_rng(seed)
+    A = left_canonical(rng, B)
+    Bt = nearest_isometry(A + 0.05 * (rng.standard_normal(A.shape) + 1j * rng.standard_normal(A.shape)))
+    return A, Bt, _W(seed + 1)
+
+
+def test_left_vector_is_one_chain_equal_to_two():
+    """The plain K4's left vector, read off the conjugate transpose of E's
+    power, equals the dominant eigenvector of a second complex128 chain on
+    E^dag (the JAX kernel's way, and K4's before), up to phase: 1e-12."""
+    As, Bs, W = (torch.from_numpy(x) for x in _quench_like(6, 16))
+    Wb = W.expand(6, 4, 4)
+    _, _, _, E = ttf._build(As, Bs, Wb)
+    _, _, w = ttf._fwd_plain(As, Bs, Wb, 48, True)
+    w2 = _dominant_eig_plain(E.mH, 48)[1]
+    print(f"|u off M^dag - u of a second chain| {np.abs(phase_aligned(to_np(w), to_np(w2)) - to_np(w2)).max():.3g}")
+    np.testing.assert_allclose(phase_aligned(to_np(w), to_np(w2)), to_np(w2), atol=1e-12)
+
+
+def test_left_vector_matches_pallas_interpret():
+    """The plain K4's lam, v and left vector u against JAX's fused forward
+    with the left solve, in interpret mode (float32 planes, 48
+    squarings): lam to 2e-5, v and u up to phase to 1e-5."""
+    As, Bs, W = _quench_like(3, 18)
+    lam_j, v_j, u_j = (np.asarray(x) for x in jax_fused_forward(
+        jnp.asarray(As), jnp.asarray(Bs), jnp.asarray(W.astype(np.complex64)), 48, True, interpret=True))
+    lam, v, u = ttf._fwd_plain(*(torch.from_numpy(x) for x in (As, Bs)), torch.from_numpy(W).expand(3, 4, 4),
+                               48, True)
+    np.testing.assert_allclose(to_np(lam), lam_j, atol=2e-5)
+    np.testing.assert_allclose(phase_aligned(to_np(v), v_j), v_j, atol=1e-5)
+    print(f"|u - JAX's u| {np.abs(phase_aligned(to_np(u), u_j) - u_j).max():.3g}")
+    np.testing.assert_allclose(phase_aligned(to_np(u), u_j), u_j, atol=1e-5)
 
 
 def test_pallas_dispatch_shape_checks():
