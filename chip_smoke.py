@@ -12,7 +12,7 @@ Phases (any failure exits non-zero, and nothing is caught):
      complex128 on the card;
   4. energy (K2, K3): the sweep's own first-step batch (1024 points x 4
      restarts); forward and adjoint kernels against the plain versions at
-     complex128;
+     complex128; K2 also at 65,536 (the layout the launcher picks there);
   5. main path, optimize: the config-4 phase-diagram sweep (1024 values of
      g, 300 steps, 4 restarts) on the card, then the represent step on the
      returned states; every returned tensor is read back in float64 against
@@ -25,8 +25,10 @@ Phases (any failure exits non-zero, and nothing is caught):
      K4 on the quench's own batch of 64);
   7. main path, evolve: the ground state of tfim(1.5) (300 L-BFGS steps),
      read back in float64 against the exact energy; the K4/K5 check of
-     phase 6 on the quench's own first inner-step inputs, and K4 timed on
-     them (64 elements, batched W, the left vector); then the quench
+     phase 6 on the quench's own first inner-step inputs, and K4 and K5
+     timed on them (64 elements, batched W, the left vector), beside an
+     empty kernel launched on K5's grid the same way (the launch floor);
+     then the quench
      family 1.5 -> 64 couplings in [0.1, 0.4] (dt 0.02, 30 outer steps of
      80 adam steps, engine="pallas"), timed, against the exact Loschmidt
      rate, and the launch counters show that K4 and K5 carried every inner
@@ -56,7 +58,8 @@ Phases (any failure exits non-zero, and nothing is caught):
      phase (1e-4) against the plain version at complex128, both through the
      same _extract_eigpair; the HMMA (tensor-core) instructions of K8's
      kernels in the library's SASS (cuobjdump); kernel timed on both
-     inputs, plain version and one unwarmed torch.linalg.eig on E;
+     inputs, plain version and torch.linalg.eig on E (one call after one
+     warm-up call); K8's device-memory path timed at N = 256;
  12. main path, the batched D >= 3 TDVP objective: tdvp_objective_pallas
      and its Bs-gradient on 4,096 pairs at D = 4 (K7) and D = 8 (K8) with a
      per-pair gate, every element against the dense objective at
@@ -223,15 +226,20 @@ def bound(flops, nbytes, tc_flops=0):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def cuda_ms(fn, reps, warm_up=True):
+def cuda_ms(fn, reps, warm_up=True, queued=False):
     """Mean time of fn over reps calls on the card's timeline, by CUDA
     events after one warm-up call (for a plain version made of many small
-    launches this includes the gaps the host leaves between them)."""
+    launches this includes the gaps the host leaves between them; so does
+    a kernel shorter than the host's launch).  ``queued``: the calls wait
+    behind a ~10 ms spin kernel (torch.cuda._sleep) until the host has
+    queued them all, so the events time the card's work alone."""
     if warm_up:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -574,8 +582,9 @@ def main() -> int:
         ms=cuda_ms(lambda: lib.qmps_dominant_eig(
             E.data_ptr(), lam_o.data_ptr(), v_o.data_ptr(), K1_BATCH, K1_ITERS, 0, stream), 50),
         plain_ms=cuda_ms(lambda: _dominant_eig_plain(E, iters=K1_ITERS), 5),
-        # one call, not warmed: eig on CUDA tensors computes on the host (~30 s)
-        library_ms=cuda_ms(lambda: eig_dominant(E), 1, warm_up=False),
+        # one call after a warm-up call: eig on CUDA tensors computes on the
+        # host (~30 s a call)
+        library_ms=cuda_ms(lambda: eig_dominant(E), 1),
     )
     results["K1"].update(zip(("bound_ms", "bound_by"), bound(*kernel_work("K1", K1_BATCH))))
     require(torch.equal(lam_o, lam) and torch.equal(v_o, v), "K1 timed launches reproduce its output")
@@ -628,6 +637,18 @@ def main() -> int:
     )
     require(torch.equal(e_o, e) and torch.equal(v_o, v) and torch.equal(Abar_o, Abar)
             and torch.equal(hbar_o, hbar), "K2, K3 timed launches reproduce their outputs")
+    # K2 at 65,536, where the launcher may pick another layout than at the
+    # sweep's 4,096: phase 4's gates on seeded left-canonical A, TFIM h
+    A2 = torch.from_numpy(left_canonical(np.random.default_rng(4), TDVP_BATCH)).to(dev, c64)
+    h2 = tfim_matrix(torch.linspace(0.1, 2.0, TDVP_BATCH, dtype=torch.float64, device=dev)).to(c64)
+    e2, lam2, v2 = tef._fwd_cuda(A2, h2, 48)
+    e2_p, lam2_p, v2_p = tef._fwd_plain(A2.to(c128), h2.to(c128), 48)
+    errs2 = ((e2.double() - e2_p).abs().max().item(), (lam2.to(c128) - lam2_p).abs().max().item(),
+             (v2.to(c128) - v2_p).abs().max().item())
+    print(f"K2 ({TDVP_BATCH}): |de| {errs2[0]:.3g} (tol 2e-5), |dlam| {errs2[1]:.3g} (tol 1e-5), "
+          f"|dv| {errs2[2]:.3g} (tol 1e-4)")
+    require(errs2[0] < 2e-5 and errs2[1] < 1e-5 and errs2[2] < 1e-4, f"K2 against its plain version ({TDVP_BATCH})")
+    results["K2"]["max_abs_err"] = max(err_e, errs2[0])
     # no single PyTorch call computes the energy objective or its adjoint
     for k in ("K2", "K3"):
         results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, B))), library_ms=None)
@@ -756,17 +777,48 @@ def main() -> int:
     As_q, Bs_q, Ws_q = (t.contiguous() for t in (As_q, Bs_q, Ws_q))
     outs_q = tdf._fwd_cuda(As_q, Bs_q, Ws_q, TDVP_ITERS, True)
     lam_o, v_o, w_o = (torch.empty_like(t) for t in outs_q)
-    ms4q = cuda_ms(lambda: lib.qmps_tdvp_fwd(
-        As_q.data_ptr(), Bs_q.data_ptr(), Ws_q.data_ptr(), 16, lam_o.data_ptr(), v_o.data_ptr(),
-        w_o.data_ptr(), N_G1, TDVP_ITERS, 1, stream), 200)
+    def launch4q():
+        lib.qmps_tdvp_fwd(As_q.data_ptr(), Bs_q.data_ptr(), Ws_q.data_ptr(), 16, lam_o.data_ptr(), v_o.data_ptr(),
+                          w_o.data_ptr(), N_G1, TDVP_ITERS, 1, stream)
+
+    ms4q = cuda_ms(launch4q, 200)
     require(all(torch.equal(x, y) for x, y in zip((lam_o, v_o, w_o), outs_q)),
             "K4 timed launches reproduce its output (the quench's batch)")
     results["K4"].update(
-        batch_quench=N_G1, ms_quench=ms4q,
+        batch_quench=N_G1, ms_quench=ms4q, device_ms_quench=cuda_ms(launch4q, 200, queued=True),
         plain_ms_quench=cuda_ms(lambda: tdf._fwd_plain(As_q, Bs_q, Ws_q, TDVP_ITERS, True), 5),
         bound_ms_quench=bound(*kernel_work("K4", N_G1, w_bytes=128 * N_G1))[0])
     print(f"K4 time on the quench's batch ({N_G1}, batched W, left vector): {ms4q:.5f} ms (plain "
           f"{results['K4']['plain_ms_quench']:.4f} ms); at {TDVP_BATCH}: {results['K4']['ms']:.5f} ms")
+    # K5 on the same inputs and K4's outputs there (ct = 1), raw launches;
+    # an empty kernel on K5's grid, launched the same way, is the floor
+    lam_q, v_q, u_q = outs_q
+    ct_q = torch.ones(N_G1, device=dev)
+    bars_q = tdf._bwd_cuda(As_q, Bs_q, Ws_q, lam_q, v_q, u_q, ct_q)
+    bars_qo = [torch.empty_like(t) for t in bars_q]
+
+    def launch5q():
+        lib.qmps_tdvp_bwd(As_q.data_ptr(), Bs_q.data_ptr(), Ws_q.data_ptr(), 16, v_q.data_ptr(), u_q.data_ptr(),
+                          lam_q.data_ptr(), ct_q.data_ptr(), *(t.data_ptr() for t in bars_qo), N_G1, stream)
+
+    ms5q = cuda_ms(launch5q, 200)
+    require(all(torch.equal(x, y) for x, y in zip(bars_qo, bars_q)),
+            "K5 timed launches reproduce its output (the quench's batch)")
+    _lib.check(lib.qmps_empty(N_G1, stream), "empty")
+    floor_ms = cuda_ms(lambda: lib.qmps_empty(N_G1, stream), 200)
+    # the same, queued behind a spin kernel: the card's own time a launch
+    dev5q = cuda_ms(launch5q, 200, queued=True)
+    dev_floor_ms = cuda_ms(lambda: lib.qmps_empty(N_G1, stream), 200, queued=True)
+    results["K5"].update(
+        batch_quench=N_G1, ms_quench=ms5q, launch_floor_ms=floor_ms, device_ms_quench=dev5q,
+        device_launch_floor_ms=dev_floor_ms,
+        plain_ms_quench=cuda_ms(lambda: tdf._bwd_plain(As_q, Bs_q, Ws_q, lam_q, v_q, u_q, ct_q), 5),
+        bound_ms_quench=bound(*kernel_work("K5", N_G1, w_bytes=128 * N_G1))[0])
+    print(f"K5 time on the quench's batch ({N_G1}, batched W): {ms5q:.5f} ms (plain "
+          f"{results['K5']['plain_ms_quench']:.4f} ms, bound {results['K5']['bound_ms_quench']:.3g} ms); "
+          f"an empty kernel launched the same way {floor_ms:.5f} ms; queued behind a spin kernel (the card's "
+          f"time): K4 {results['K4']['device_ms_quench']:.5f}, K5 {dev5q:.5f}, empty {dev_floor_ms:.5f} ms; "
+          f"at {TDVP_BATCH}: K5 {results['K5']['ms']:.5f} ms")
     results["K4"]["max_abs_err"] = max(e[0] for e in errs)
     results["K5"]["max_abs_err"] = max(e[1] for e in errs)
 
@@ -873,7 +925,8 @@ def main() -> int:
     errs8 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (25, 64)]
     errs8 += [matpow_check(tpp, f"D = 8 TDVP {t}", X) for t, X in zip(tags, E_big[8])]
     tc = errs8[:]  # the tensor-core path's
-    errs8.append(matpow_check(tpp, "random, device-memory path", random_matrices(rng, 256, 133, dev)))
+    E256 = random_matrices(rng, 256, 133, dev)
+    errs8.append(matpow_check(tpp, "random, device-memory path", E256))
     print(f"K8 on the tensor cores (3xTF32), largest errors against complex128: random N = 64 lam "
           f"{errs8[1][0]:.3g}, v {errs8[1][1]:.3g}; over N = 25, 64 and the D = 8 matrices lam "
           f"{max(e[0] for e in tc):.3g}, v {max(e[1] for e in tc):.3g}. The CUDA-core K8 of earlier runs: "
@@ -902,14 +955,26 @@ def main() -> int:
         results[k] = dict(batch=BIG_BATCH, max_abs_err=max(max(e) for e in (errs7 if k == "K7" else errs8)),
                           ms=ms["E"], ms_e_edag_8192=ms["[E, E^dag]"],
                           plain_ms=cuda_ms(lambda: tpp._matrix_power_plain(E, TDVP_ITERS), 5 if k == "K7" else 2),
-                          # one call, not warmed: eig on CUDA tensors computes on the host
-                          library_ms=cuda_ms(lambda: eig_dominant(E), 1, warm_up=False))
+                          # one call after a warm-up call: eig on CUDA tensors computes on the host
+                          library_ms=cuda_ms(lambda: eig_dominant(E), 1))
         results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, BIG_BATCH))))
         results[k]["bound_ms_e_edag_8192"] = bound(*kernel_work(k, 2 * BIG_BATCH))[0]
         print(f"{k} times ({N}x{N}, {TDVP_ITERS} squarings): kernel {ms['E']:.5f} ms on E ({BIG_BATCH}), "
               f"{ms['[E, E^dag]']:.5f} ms on [E, E^dag] ({2 * BIG_BATCH}); plain {results[k]['plain_ms']:.4f} ms, "
               f"torch.linalg.eig + pick {results[k]['library_ms']:.1f} ms, bound {results[k]['bound_ms']:.5f} ms "
               f"({results[k]['bound_by']}) on E")
+    # K8's device-memory path (matpow_global_kernel, N > 64) on the N = 256
+    # set: raw launches into a preallocated output and workspace
+    n256 = E256.shape[0]
+    M256 = tpp._matrix_power_cuda(E256, TDVP_ITERS)
+    M256_o, work256 = torch.empty_like(M256), torch.empty_like(E256)
+    ms_g = cuda_ms(lambda: lib.qmps_matpow_large(E256.data_ptr(), M256_o.data_ptr(), work256.data_ptr(), n256, 256,
+                                                 TDVP_ITERS, stream), 3)
+    require(torch.equal(M256_o, M256), "K8's device-memory path: timed launches reproduce its output")
+    results["K8"].update(batch_global_n256=n256, ms_global_n256=ms_g,
+                         bound_ms_global_n256=bound(matpow_flops(256, TDVP_ITERS) * n256, 2 * 8 * 256 ** 2 * n256)[0])
+    print(f"K8 device-memory path ({n256} x 256x256, {TDVP_ITERS} squarings): {ms_g:.4f} ms, bound "
+          f"{results['K8']['bound_ms_global_n256']:.4f} ms (operations, float32 CUDA cores)")
     print(f"phase 11 in {time.perf_counter() - t11:.1f} s")
 
     # ---- 12. main path, the batched D >= 3 TDVP objective at 4,096 ----

@@ -7,7 +7,7 @@ adam loop warm-started from the current parameters.
 Ported: ``batched_quench_sweep``, a family of quench trajectories in
 lockstep, with both engines.  ``MPSTimeEvolve`` (with checkpoint and
 resume), ``compile_state_to_ansatz``, ``loschmidt_echo_run`` and the noise
-sweeps wait (ROADMAP.md, item 12).  The JAX package's ``chunk``, ``mesh``
+sweeps wait (ROADMAP.md, section 1 item 1).  The JAX package's ``chunk``, ``mesh``
 and compiled-program cache are TPU compile workarounds and have no
 counterpart here.
 """
@@ -59,14 +59,18 @@ def batched_quench_sweep(
     ``params0`` (15,) is the initial state's parameters; without it the
     ground state of tfim(g0) is found first (L-BFGS, ``gs_steps``,
     ``generator``).  ``device`` defaults to g1s's for a tensor, else to the
-    card (``config.resolve_device``): float64 on the CPU, float32 on CUDA.
+    card (``config.resolve_device``).  The precision is float32 if
+    ``params0`` or else ``g1s`` is a float32 tensor (so the card's numerics
+    run on the CPU too), else by device: float64 on the CPU, float32 on
+    CUDA.
 
     Returns (times (n_steps,), loschmidt (len(g1s), n_steps)).
     """
     if engine not in ("dense", "pallas"):
         raise ValueError(f"engine must be 'dense' or 'pallas', got {engine!r}")
     device = resolve_device(device, g1s)
-    cdtype, rdtype = default_dtypes(device)
+    f32 = next((t for t in (params0, g1s) if isinstance(t, torch.Tensor) and t.dtype == torch.float32), None)
+    cdtype, rdtype = default_dtypes(device, like=f32)
     g1s = torch.as_tensor(g1s).to(device, rdtype)
     if params0 is None:
         params0 = find_ground_state(

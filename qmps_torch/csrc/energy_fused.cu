@@ -16,18 +16,22 @@
 // the JAX pairing convention (de = Re sum Abar dA); the PyTorch wrapper
 // conjugates.
 //
-// One thread per element, complex float32 in registers; every tensor is read
-// in its (B, ...) complex64 layout and the ragged edge is guarded, where the
-// TPU kernels used component-major (ncomp, R, 128) planes padded to 1024.
+// Complex float32 in registers; every tensor is read in its (B, ...)
+// complex64 layout and the ragged edge is guarded, where the TPU kernels
+// used component-major (ncomp, R, 128) planes padded to 1024.
 //
 // What bounds them on an H100: arithmetic latency and registers, not memory
 // (K2 reads 384 bytes and writes 44 per element against ~3500 complex
 // multiply-adds, most of them the 48 dependent squarings; K3 reads ~470
-// bytes against ~24 x 80 complex multiply-adds of the series).  K3 is the
-// register-heavy one: the series carries the 4x4 X and its square beside z.
-// It therefore rebuilds AA, r and M and re-reads h AFTER the series instead
-// of keeping them live across it, so only A, v, lam, ct and the series state
-// cross the loop.
+// bytes against ~24 x 80 complex multiply-adds of the series).  K2 at the
+// sweep's 4,096 ran one thread an element: 128 one-warp blocks, one warp an
+// SM carrying the 48-squaring chain.  Up to kEnergyQuadMaxB it runs over a
+// quad of lanes an element as K4 does (planes.cuh::quad_squarings4): 512
+// warps, 16 multiply-adds a lane a squaring.  K3, one thread an element, is
+// the register-heavy one: the series carries the 4x4 X and its square
+// beside z.  It therefore rebuilds AA, r and M and re-reads h AFTER the
+// series instead of keeping them live across it, so only A, v, lam, ct and
+// the series state cross the loop.
 #include "planes.cuh"
 
 namespace qmps {
@@ -112,6 +116,77 @@ __global__ void __launch_bounds__(kThreads)
   st(lam_out, b, lam);
 #pragma unroll
   for (int i = 0; i < 4; ++i) st(v_out + (size_t)b * 4, i, v[i]);
+}
+
+// K2 over a quad of lanes an element (small batches), 8 elements a block:
+// lane r owns row r of E and of its power (planes.cuh::quad_squarings4); the
+// reads gather the power and E once; the energy is split by t, t = r, and
+// summed by a butterfly
+__global__ void __launch_bounds__(kQuadThreads)
+    energy_fwd_quad_kernel(const float2* __restrict__ A, const float2* __restrict__ H,
+                           float* __restrict__ e_out, float2* __restrict__ lam_out,
+                           float2* __restrict__ v_out, int B, int iters) {
+  const int r = threadIdx.x & 3;
+  const long long elem = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const bool live = elem < B;
+  // lanes past B compute on the last element (every lane takes part in the
+  // shuffles) and store nothing
+  const size_t b = live ? (size_t)elem : (size_t)(B - 1);
+  c32 a[8], erow[4], m[4];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = ld(A + b * 8, k);
+  {
+    c32 aa[16];
+    build_AA(a, aa);
+    build_E_mixed_row(aa, aa, r, erow);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) m[c] = erow[c];
+  quad_squarings4(m, iters);
+  c32 lam, v[4];
+  {
+    c32 full[16];
+    quad_gather(m, full);
+    chirp_read4<false>(full, v);
+    quad_gather(erow, full);
+    lam = rayleigh4(full, v);
+  }
+  trace_gauge(v);
+
+  c32 aa[16], r1[4], r2[4], tau, mm[16];
+  build_AA(a, aa);
+  r_chain(v, r1, r2, tau);
+  build_M(aa, r2, mm);
+  // AA[t = r, :], selected in registers (an index by r would put aa in
+  // local memory)
+  c32 aar[4];
+#pragma unroll
+  for (int ik = 0; ik < 4; ++ik) {
+    aar[ik] = aa[ik];
+#pragma unroll
+    for (int t = 1; t < 4; ++t)
+      if (t == r) aar[ik] = aa[t * 4 + ik];
+  }
+  const float2* h = H + b * 16;
+  float en = 0.f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    c32 T = mk(0.f, 0.f);  // T[r, s], T_entry's sum
+#pragma unroll
+    for (int ik = 0; ik < 4; ++ik) cfma(T, mm[s * 4 + ik], conj(aar[ik]));
+    const c32 hts = ld(h, r * 4 + s);
+    en += hts.re * T.re - hts.im * T.im;
+  }
+  en += __shfl_xor_sync(0xffffffffu, en, 1);
+  en += __shfl_xor_sync(0xffffffffu, en, 2);
+  if (!live) return;
+  if (r == 0) {
+    e_out[b] = en;
+    st(lam_out, b, lam);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c == r) st(v_out + b * 4, c, v[c]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -298,13 +373,24 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace qmps
 
+// The largest batch K2 runs over quads of lanes; above it, one thread an
+// element.
+constexpr int kEnergyQuadMaxB = 8192;
+
 // A (B, 2, 2, 2) and h (B, 4, 4) complex64 -> e (B,) float32, lam (B,)
 // complex64, v (B, 4) complex64.  Returns cudaGetLastError().
 extern "C" int qmps_energy_fwd(const void* A, const void* h, void* e, void* lam, void* v, int B,
                                int iters, void* stream) {
-  const int grid = (B + qmps::kThreads - 1) / qmps::kThreads;
-  qmps::energy_fwd_kernel<<<grid, qmps::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)A, (const float2*)h, (float*)e, (float2*)lam, (float2*)v, B, iters);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= kEnergyQuadMaxB) {
+    const int grid = (int)((4LL * B + qmps::kQuadThreads - 1) / qmps::kQuadThreads);
+    qmps::energy_fwd_quad_kernel<<<grid, qmps::kQuadThreads, 0, s>>>(
+        (const float2*)A, (const float2*)h, (float*)e, (float2*)lam, (float2*)v, B, iters);
+  } else {
+    const int grid = (B + qmps::kThreads - 1) / qmps::kThreads;
+    qmps::energy_fwd_kernel<<<grid, qmps::kThreads, 0, s>>>(
+        (const float2*)A, (const float2*)h, (float*)e, (float2*)lam, (float2*)v, B, iters);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -20,10 +20,10 @@
 
 namespace qmps {
 
-// Threads per block for every kernel of the slice.  One thread owns one
-// batch element; 32-thread blocks spread a 4096-element batch over 128 SMs
-// (the work is latency-bound, so SM coverage beats occupancy), and let a
-// thread keep up to 255 registers.
+// Threads per block for the kernels where one thread owns one batch
+// element; 32-thread blocks spread a 4096-element batch over 128 SMs (the
+// work is latency-bound, so SM coverage beats occupancy), and let a thread
+// keep up to 255 registers.
 constexpr int kThreads = 32;
 
 struct c32 {
@@ -112,6 +112,22 @@ __device__ __forceinline__ void build_E_mixed(const c32 x[16], const c32 y[16], 
         }
 }
 
+// Row r = (i j) of build_E_mixed, its sums in the same order (the quad
+// layouts: lane r builds the row it owns)
+__device__ __forceinline__ void build_E_mixed_row(const c32 x[16], const c32 y[16], int r, c32 row[4]) {
+  const bool i1 = r >> 1, j1 = r & 1;
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      c32 acc = mk(0.f, 0.f);
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        cfma(acc, i1 ? x[s * 4 + 2 + k] : x[s * 4 + k], conj(j1 ? y[s * 4 + 2 + l] : y[s * 4 + l]));
+      row[k * 2 + l] = acc;
+    }
+}
+
 // E[(i j), (k l)] = sum_s AA[s, i, k] conj(AA[s, j, l])   (energy_fused.py::_plane_E)
 __device__ __forceinline__ void build_E(const c32 aa[16], c32 e[16]) { build_E_mixed(aa, aa, e); }
 
@@ -170,6 +186,42 @@ __device__ __forceinline__ void squarings4(c32 m[16], int iters) {
     normalize<16>(r);
 #pragma unroll
     for (int k = 0; k < 16; ++k) m[k] = r[k];
+  }
+}
+
+// A quad of lanes an element (K2 and K4 at small batches): lane r of the
+// quad owns row r of a 4x4 matrix; width-4 shuffles fetch the other rows.
+constexpr int kQuadThreads = 32;  // 8 elements a block
+
+// row k of the quad's matrix, whose row q lane q holds
+__device__ __forceinline__ c32 quad_get(c32 x, int k) {
+  return mk(__shfl_sync(0xffffffffu, x.re, k, 4), __shfl_sync(0xffffffffu, x.im, k, 4));
+}
+
+// the whole 4x4 matrix on every lane of the quad
+__device__ __forceinline__ void quad_gather(const c32 row[4], c32 full[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) full[k * 4 + c] = quad_get(row[c], k);
+}
+
+// squarings4 over the quad: m is this lane's row; row r of M^2 = sum_k
+// M[r, k] M[k, :] (k in matsq4's order), 16 multiply-adds a lane, and the
+// Frobenius norm as a two-step butterfly
+__device__ __forceinline__ void quad_squarings4(c32 m[4], int iters) {
+  for (int it = 0; it < iters; ++it) {
+    c32 p[4] = {mk(0.f, 0.f), mk(0.f, 0.f), mk(0.f, 0.f), mk(0.f, 0.f)};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cfma(p[c], m[k], quad_get(m[c], k));
+    float n2 = norm2(p[0]) + norm2(p[1]) + norm2(p[2]) + norm2(p[3]);
+    n2 += __shfl_xor_sync(0xffffffffu, n2, 1);
+    n2 += __shfl_xor_sync(0xffffffffu, n2, 2);
+    const float inv = rsqrtf(fmaxf(n2, 1e-30f));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) m[c] = inv * p[c];
   }
 }
 

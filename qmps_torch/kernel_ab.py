@@ -1,25 +1,36 @@
-"""Old against new: K4, K7 and K8 of two source trees on the same inputs,
-on one CUDA card.
+"""Old against new: K2, K4, K5, K7 and K8 of two source trees on the same
+inputs, on one CUDA card.
 
     python -m qmps_torch.kernel_ab --old DIR [--out FILE]
 
 DIR is a checkout of an earlier commit (its ``qmps_torch/csrc`` is built
 beside this tree's, by the same flags).  Each kernel is timed by CUDA
-events over raw launches into preallocated outputs, old and new in turns
-(old, new, new, old), after a warm-up, on:
-- K4 (with the left vector, batched W): quench-like D = 2 inputs
-  (left-canonical A, B the nearest isometry to A + 0.05 noise, W =
-  expm(-i h(g1) 0.04), g1 in [0.1, 0.4]) at batches 64 (the quench's) to
-  65,536; this tree's K4 also with each of its two layouts forced (the
-  source copied with ``kQuadMaxB`` rewritten), to measure where the quad
-  layout stops paying;
+events over raw launches into preallocated outputs, queued behind a spin
+kernel so that the card runs them back to back (the device's time a
+launch, not the host's launch rate, which sets the pace of a kernel of a
+few microseconds), old and new in turns (old, new, new, old), after a
+warm-up, on:
+- K4 (with the left vector, batched W) and K5 (on K4's complex128 lam, v
+  and u, rounded): quench-like D = 2 inputs (left-canonical A, B the
+  nearest isometry to A + 0.05 noise, W = expm(-i h(g1) 0.04), g1 in
+  [0.1, 0.4]) at batches 64 (the quench's) to 65,536;
+- K2: the sweep's kind of inputs (left-canonical A, h the TFIM matrix of g
+  in [0.1, 2.0]) at batches 1,024 to 65,536 (the sweep's is 4,096);
+- this tree's K2 and K4 also with each layout forced: the source copied
+  with the batch limits of their quad layouts (``kQuadMaxB``,
+  ``kEnergyQuadMaxB``) rewritten, to 2^30 ("quad": a quad of lanes an
+  element) or to 0 ("thread": one thread an element), to measure where
+  the quad stops paying (K5 has one layout, 16 lanes an element);
 - K7 and K8: the D = 4 and D = 8 TDVP transfer matrices of 4,096 such
   pairs (the objective's batch), E alone (4,096, this tree's path) and
-  [E, E^dag] (8,192, the earlier path).
+  [E, E^dag] (8,192, the earlier path);
+- an empty kernel on K5's grid at 64 elements, queued and not: the floor
+  of the card's and of the host's launch rate.
 Every output is checked against the complex128 plain version (lam and the
-vectors up to phase) and the largest errors are printed beside the times.
-Prints one line per measurement and writes all of them as JSON to FILE
-(default ``qmps_torch/_build/kernel_ab.json``, beside the built libraries).
+vectors up to phase; K5's cotangents scaled by max(1, the element's
+largest)) and the largest errors are printed beside the times.  Prints one
+line per measurement and writes all of them as JSON to FILE (default
+``qmps_torch/_build/kernel_ab.json``, beside the built libraries).
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 
 from .kernels import _lib
+from .kernels import energy_fused as tef
 from .kernels import pallas_power as tpp
 from .kernels import tdvp_fused as tdf
 from .mps.transfer import transfer_dense
@@ -43,7 +55,13 @@ from .objectives.overlap import mixed_transfer_with_gate
 from .parallel.sweep import tfim_matrix
 
 ITERS = 48
+#: ~10 ms of the card's clock: longer than the host takes to queue 200 raw launches
+SLEEP_CYCLES = 20_000_000
 K4_BATCHES = (64, 1024, 4096, 6144, 8192, 12288, 16384, 65536)
+K5_BATCHES = (64, 1024, 4096, 8192, 16384, 65536)
+K2_BATCHES = (1024, 4096, 6144, 8192, 12288, 16384, 65536)
+#: the batch limits of the small-batch layouts, rewritten to force a layout
+LAYOUT_LIMITS = {"tdvp_fused.cu": ("kQuadMaxB",), "energy_fused.cu": ("kEnergyQuadMaxB",)}
 BIG = 4096
 
 
@@ -68,10 +86,15 @@ def _pairs(rng, B, D, eps, dev):
     return [torch.as_tensor(t).to(dev, torch.complex64).contiguous() for t in (A, Bt, W)]
 
 
-def _ms(fn, reps):
+def _ms(fn, reps, queued=True):
+    """Mean time of fn over reps launches after a warm-up, by CUDA events;
+    ``queued``: the launches wait behind a spin kernel (torch.cuda._sleep),
+    so the events time the card's work, not the host's launches."""
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
@@ -95,18 +118,33 @@ def _phase_err(v, ref):
     return (v - ref).abs().max().item()
 
 
-def _variant(src: Path, quad_max_b: int, root: Path) -> Path:
-    """A copy of ``src`` whose K4 launcher takes the quad layout up to
-    ``quad_max_b`` elements."""
-    dst = root / f"csrc_quad_{quad_max_b}"
+def _variant(src: Path, limit: int, name: str, root: Path) -> Path:
+    """A copy of ``src`` whose launchers take their small-batch layouts up
+    to ``limit`` elements (every constant of ``LAYOUT_LIMITS`` rewritten)."""
+    dst = root / f"csrc_{name}"
     shutil.copytree(src, dst)
-    cu = dst / "tdvp_fused.cu"
-    text, n = re.subn(r"constexpr int kQuadMaxB = \d+;", f"constexpr int kQuadMaxB = {quad_max_b};",
-                      cu.read_text())
-    if n != 1:
-        raise RuntimeError("kQuadMaxB not found in tdvp_fused.cu")
-    cu.write_text(text)
+    for fname, consts in LAYOUT_LIMITS.items():
+        cu = dst / fname
+        text = cu.read_text()
+        for c in consts:
+            text, n = re.subn(rf"constexpr int {c} = [^;]+;", f"constexpr int {c} = {limit};", text)
+            if n != 1:
+                raise RuntimeError(f"{c} not found in {fname}")
+        cu.write_text(text)
     return dst
+
+
+def _timed_rows(rows, kernel, n, launch, outs, err_of, reps, layouts=True):
+    """Time ``launch(tree)`` old/new and (``layouts``) thread/quad in turns,
+    check each tree's outputs with ``err_of``, and append and print one row
+    a tree."""
+    times = _in_turns({k: launch(k) for k in ("old", "new")}, reps)
+    if layouts:
+        times.update(_in_turns({k: launch(k) for k in ("thread", "quad")}, reps))
+    for k in times:
+        err = err_of(outs[k])
+        rows.append({"kernel": kernel, "tree": k, "batch": n, "ms": times[k], "max_err": err})
+        print(f"{kernel} {k:6s} B = {n:6d}: {times[k][0]:.5f} / {times[k][1]:.5f} ms, max err {err:.3g}", flush=True)
 
 
 def main() -> int:
@@ -131,36 +169,86 @@ def main() -> int:
 
 def _run(args, dev, card, tmp: Path) -> int:
     trees = {"old": args.old / "qmps_torch" / "csrc", "new": _lib.SRC_DIR,
-             "quad": _variant(_lib.SRC_DIR, 1 << 30, tmp), "thread": _variant(_lib.SRC_DIR, 0, tmp)}
+             "quad": _variant(_lib.SRC_DIR, 1 << 30, "quad", tmp), "thread": _variant(_lib.SRC_DIR, 0, "thread", tmp)}
     with ThreadPoolExecutor(len(trees)) as pool:  # each build runs its own nvcc per source
         built = dict(zip(trees, pool.map(lambda d: _lib.build(d, tmp / "build")[0], trees.values())))
-    libs = {k: _lib.load(p) for k, p in built.items()}
+    libs = {k: _lib.load(p, strict=k != "old") for k, p in built.items()}
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
 
-    # ---- K4 ----
+    # ---- K4, K5 ----
     A, Bt, W = _pairs(np.random.default_rng(6), max(K4_BATCHES), 2, 0.05, dev)
-    for n in K4_BATCHES:
+    c128 = torch.complex128
+    for n in sorted(set(K4_BATCHES) | set(K5_BATCHES)):
         a, b, w = A[:n].contiguous(), Bt[:n].contiguous(), W[:n].contiguous()
-        lam_p, v_p, u_p = tdf._fwd_plain(*(t.to(torch.complex128) for t in (a, b, w)), ITERS, True)
-        outs = {k: (torch.empty(n, dtype=torch.complex64, device=dev),
-                    torch.empty(n, 4, dtype=torch.complex64, device=dev),
+        a2, b2, w2 = (t.to(c128) for t in (a, b, w))
+        lam_p, v_p, u_p = tdf._fwd_plain(a2, b2, w2, ITERS, True)
+        reps = 200 if n <= 4096 else 50
+        if n in K4_BATCHES:
+            outs = {k: (torch.empty(n, dtype=torch.complex64, device=dev),
+                        torch.empty(n, 4, dtype=torch.complex64, device=dev),
+                        torch.empty(n, 4, dtype=torch.complex64, device=dev)) for k in libs}
+
+            def launch4(k):
+                lam, v, u = outs[k]
+                return lambda: libs[k].qmps_tdvp_fwd(a.data_ptr(), b.data_ptr(), w.data_ptr(), 16, lam.data_ptr(),
+                                                     v.data_ptr(), u.data_ptr(), n, ITERS, 1, stream)
+
+            def err4(o):
+                lam, v, u = (t.to(c128) for t in o)
+                return max((lam - lam_p).abs().max().item(), _phase_err(v, v_p), _phase_err(u, u_p))
+
+            _timed_rows(rows, "K4", n, launch4, outs, err4, reps)
+        if n in K5_BATCHES:
+            lam, v, u = (t.to(torch.complex64).contiguous() for t in (lam_p, v_p, u_p))
+            ct = torch.ones(n, device=dev)
+            bars_p = tdf._bwd_plain(a2, b2, w2, lam.to(c128), v.to(c128), u.to(c128), ct.double())
+            outs = {k: [torch.empty(n, 2, 2, 2, dtype=torch.complex64, device=dev),
+                        torch.empty(n, 2, 2, 2, dtype=torch.complex64, device=dev),
+                        torch.empty(n, 4, 4, dtype=torch.complex64, device=dev)] for k in ("old", "new")}
+
+            def launch5(k):
+                ab, bb, wb = outs[k]
+                return lambda: libs[k].qmps_tdvp_bwd(a.data_ptr(), b.data_ptr(), w.data_ptr(), 16, v.data_ptr(),
+                                                     u.data_ptr(), lam.data_ptr(), ct.data_ptr(), ab.data_ptr(),
+                                                     bb.data_ptr(), wb.data_ptr(), n, stream)
+
+            def err5(o):
+                return max(((x.to(c128) - p).abs().reshape(n, -1).max(1).values
+                            / p.abs().reshape(n, -1).max(1).values.clamp(min=1.0)).max().item()
+                           for x, p in zip(o, bars_p))
+
+            _timed_rows(rows, "K5", n, launch5, outs, err5, reps, layouts=False)
+
+    # ---- the launch floor at the quench's 64 ----
+    for queued in (True, False):
+        t = _ms(lambda: libs["new"].qmps_empty(64, stream), 200, queued)
+        rows.append({"kernel": "empty", "tree": "new", "batch": 64, "queued": queued, "ms": [t]})
+        print(f"empty kernel on K5's grid, B = 64, {'queued' if queued else 'raw launches'}: {t:.5f} ms", flush=True)
+
+    # ---- K2 ----
+    rng = np.random.default_rng(4)
+    nmax = max(K2_BATCHES)
+    A2 = torch.from_numpy(_left_canonical(rng, nmax, 2)).to(dev, torch.complex64).contiguous()
+    H2 = tfim_matrix(torch.linspace(0.1, 2.0, nmax, dtype=torch.float64)).to(dev, torch.complex64).contiguous()
+    for n in K2_BATCHES:
+        a, h = A2[:n].contiguous(), H2[:n].contiguous()
+        e_p, lam_p, v_p = tef._fwd_plain(a.to(c128), h.to(c128), ITERS)
+        outs = {k: (torch.empty(n, dtype=torch.float32, device=dev),
+                    torch.empty(n, dtype=torch.complex64, device=dev),
                     torch.empty(n, 4, dtype=torch.complex64, device=dev)) for k in libs}
 
-        def launch(k):
-            lam, v, u = outs[k]
-            return lambda: libs[k].qmps_tdvp_fwd(a.data_ptr(), b.data_ptr(), w.data_ptr(), 16, lam.data_ptr(),
-                                                 v.data_ptr(), u.data_ptr(), n, ITERS, 1, stream)
+        def launch2(k):
+            e, lam, v = outs[k]
+            return lambda: libs[k].qmps_energy_fwd(a.data_ptr(), h.data_ptr(), e.data_ptr(), lam.data_ptr(),
+                                                   v.data_ptr(), n, ITERS, stream)
 
-        reps = 200 if n <= 4096 else 50
-        times = {**_in_turns({k: launch(k) for k in ("old", "new")}, reps),
-                 **_in_turns({k: launch(k) for k in ("thread", "quad")}, reps)}
-        for k, (lam, v, u) in outs.items():
-            err = max((lam.to(torch.complex128) - lam_p).abs().max().item(),
-                      _phase_err(v.to(torch.complex128), v_p), _phase_err(u.to(torch.complex128), u_p))
-            rows.append({"kernel": "K4", "tree": k, "batch": n, "ms": times[k], "max_err": err})
-            print(f"K4 {k:6s} B = {n:6d}: {times[k][0]:.5f} / {times[k][1]:.5f} ms, max err {err:.3g}",
-                  flush=True)
+        def err2(o):
+            e, lam, v = o
+            return max((e.double() - e_p).abs().max().item(), (lam.to(c128) - lam_p).abs().max().item(),
+                       (v.to(c128) - v_p).abs().max().item())
+
+        _timed_rows(rows, "K2", n, launch2, outs, err2, 200 if n <= 4096 else 50)
 
     # ---- K7, K8 on the D = 4 and D = 8 TDVP matrices of 4,096 pairs ----
     rng = np.random.default_rng(11)

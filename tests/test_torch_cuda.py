@@ -316,3 +316,48 @@ def test_k4_layouts_match_plain(B):
     np.testing.assert_allclose(lam, lam_p, atol=2e-5)
     np.testing.assert_allclose(phase_aligned(v, v_p), v_p, atol=1e-4)
     np.testing.assert_allclose(phase_aligned(u, u_p), u_p, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 65536])
+def test_k5_layouts_match_plain(B):
+    """K5 (16 lanes an element, its one layout) at the quench's batch (64)
+    and at 65,536 against the plain adjoint at complex128 on K4's
+    outputs, with a cotangent that varies by element: Abar, Bbar and Wbar
+    to 2e-4 times max(1, the element's largest |bar|) (chip_smoke.
+    tdvp_check's gate); one launch."""
+    dev = require_cuda()
+    A, Bt, W = _tdvp_inputs(B, 10, True)
+    A32, B32, W32 = (t.to(dev, torch.complex64) for t in (A, Bt, W))
+    lam, v, u = tdf._fwd_cuda(A32, B32, W32, 48, True)
+    ct = torch.linspace(0.5, 1.5, B, device=dev)
+    _lib.reset_launches()
+    bars = tdf._bwd_cuda(A32, B32, W32, lam, v, u, ct)
+    torch.cuda.synchronize()
+    assert _lib.launches["tdvp_bwd"] == 1 and sum(_lib.launches.values()) == 1
+    c128 = torch.complex128
+    bars_p = tdf._bwd_plain(*(t.to(c128) for t in (A32, B32, W32, lam, v, u)), ct.double())
+    for k, p in zip(bars, bars_p):
+        err = (k.to(c128) - p).abs().reshape(B, -1).max(1).values
+        scale = p.abs().reshape(B, -1).max(1).values.clamp(min=1.0)
+        assert bool((err <= 2e-4 * scale).all()), (err / scale).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 65536])
+def test_k2_layouts_match_plain(B):
+    """K2 at the sweep's batch (4,096) and at 65,536, each layout the
+    launcher can pick there, against the plain forward at complex128:
+    e 2e-5, lam 1e-5, v (phase-fixed) 1e-4, chip_smoke.py phase 4's gates;
+    one launch."""
+    dev = require_cuda()
+    A = torch.from_numpy(left_canonical(np.random.default_rng(13), B).astype(np.complex64)).to(dev)
+    h = torch.from_numpy(tfim_h(np.linspace(0.1, 2.0, B)).astype(np.complex64)).to(dev)
+    _lib.reset_launches()
+    e, lam, v = tef._fwd_cuda(A, h, 48)
+    torch.cuda.synchronize()
+    assert _lib.launches["energy_fwd"] == 1 and sum(_lib.launches.values()) == 1
+    e_p, lam_p, v_p = tef._fwd_plain(A.to(torch.complex128), h.to(torch.complex128), 48)
+    assert (e.double() - e_p).abs().max().item() < 2e-5
+    assert (lam.to(torch.complex128) - lam_p).abs().max().item() < 1e-5
+    assert (v.to(torch.complex128) - v_p).abs().max().item() < 1e-4

@@ -122,3 +122,48 @@ def test_near_critical_gradient():
     tef.energy_objective_fused(A1, hs, 48).sum().backward()
     _e_ref_one(A2, hs).sum().backward()
     np.testing.assert_allclose(to_np(A1.grad), to_np(A2.grad), atol=1e-8)
+
+
+def _k2_quad(As, hs, iters):
+    """K2's quad layout (``csrc/energy_fused.cu::energy_fwd_quad_kernel``)
+    emulated, batched over elements: lane r holds row r of E and of its
+    power; each squaring forms row r of M^2 as sum_k M[r, k] M[k, :] and
+    the Frobenius norm as the two-step butterfly; the reads gather the
+    power and E; the energy is split by t = r and summed by the butterfly.
+    -> e, lam, v as K2 stores them."""
+    from qmps_torch.kernels.pallas_power import _chirp_read
+
+    AA, E = tef._build(As)
+    rows = [E[:, r, :] for r in range(4)]
+    for _ in range(iters):
+        rows = [sum((rows[r][:, k, None] * rows[k] for k in range(4)), torch.zeros_like(rows[r]))
+                for r in range(4)]
+        n = [(x.real.square() + x.imag.square()).sum(-1) for x in rows]
+        n = [n[r] + n[r ^ 1] for r in range(4)]
+        n = [n[r] + n[r ^ 2] for r in range(4)]
+        rows = [rows[r] * torch.rsqrt(torch.clamp(n[r], min=1e-30))[:, None] for r in range(4)]
+    v = _chirp_read(torch.stack(rows, 1))
+    lam = (v.conj() * (E @ v[..., None])[..., 0]).sum(-1)
+    v = tef._trace_gauge(v)
+    _, _, r2 = tef._r_chain(v)
+    T = torch.einsum("bsij,bjk,btik->bts", AA, r2, AA.conj())
+    part = [(hs[:, t, :].to(T.dtype) * T[:, t, :]).sum(-1).real for t in range(4)]
+    part = [part[r] + part[r ^ 1] for r in range(4)]
+    return part[0] + part[2], lam, v
+
+
+def test_k2_quad_map_matches_plain():
+    """K2's quad map against the plain forward ``_fwd_plain``: at complex128
+    to 1e-12; in complex64 arithmetic (the card's) against complex128
+    within chip_smoke.py phase 4's gates: e 2e-5, lam 1e-5, v 1e-4 (v is
+    phase-fixed, so compared as is)."""
+    A, h = _batch(33, seed=4)
+    At, ht = torch.from_numpy(A), torch.from_numpy(h)
+    want = tef._fwd_plain(At, ht, 48)
+    for got, ref in zip(_k2_quad(At, ht, 48), want):
+        np.testing.assert_allclose(to_np(got), to_np(ref), atol=1e-12)
+    e, lam, v = _k2_quad(At.to(torch.complex64), ht.to(torch.complex64), 48)
+    assert e.dtype == torch.float32 and lam.dtype == v.dtype == torch.complex64
+    np.testing.assert_allclose(to_np(e), to_np(want[0]), atol=2e-5)
+    np.testing.assert_allclose(to_np(lam), to_np(want[1]), atol=1e-5)
+    np.testing.assert_allclose(to_np(v), to_np(want[2]), atol=1e-4)

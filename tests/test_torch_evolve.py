@@ -4,11 +4,14 @@ initial parameters through both packages, the port's two engines against
 each other, the exact Loschmidt rate over a short horizon
 (test_evolve.py:36-47), the ground-state energy, the validation errors,
 and the port's independence of JAX."""
+import json
+import os
 import pkgutil
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -110,6 +113,84 @@ def test_engine_and_ansatz_validation():
         find_ground_state(tfim(1.0), ansatz="qaoa", steps=1, device="cpu")
     with pytest.raises(NotImplementedError, match="rotosolve"):
         find_ground_state(tfim(1.0), ansatz="full15", method="rotosolve", steps=1, device="cpu")
+
+
+def test_float32_params0_runs_the_quench_in_float32():
+    """A float32 ``params0`` makes the quench run in float32 on the CPU (the
+    card's precision); a float64 or numpy one keeps the device's float64."""
+    p0 = _params0()
+    kw = dict(engine="pallas", device="cpu", t_max=0.02, n_steps=1, inner_steps=2)
+    t32, les32 = batched_quench_sweep(1.5, [0.2, 0.5], params0=torch.from_numpy(p0).float(), **kw)
+    _, les_g = batched_quench_sweep(1.5, torch.tensor([0.2, 0.5], dtype=torch.float32), params0=p0, **kw)
+    _, les64 = batched_quench_sweep(1.5, [0.2, 0.5], params0=p0, **kw)
+    assert t32.dtype == les32.dtype == les_g.dtype == torch.float32 and les64.dtype == torch.float64
+    np.testing.assert_allclose(to_np(les32), to_np(les64), atol=1e-5)
+
+
+# the quench of chip_smoke.py phase 7 cut to the five smallest of its 64
+# couplings (where the float32 and float64 maxima lie), to t = 0.6
+_Q32_G1 = np.linspace(0.1, 0.4, 64)[:5]
+_Q32_GRID = dict(t_max=0.6, n_steps=30, inner_steps=80, lr=3e-2, engine="pallas", pallas_iters=48)
+_JAX_F32_QUENCH = """
+import json, os, sys
+os.environ["QMPS_TPU_X64"] = "0"
+import jax
+jax.config.update("jax_platforms", "cpu")
+import numpy as np
+import jax.numpy as jnp
+from qmps_tpu.algorithms.evolve import batched_quench_sweep
+p0, g1, grid = json.loads(sys.argv[1])
+_, les = batched_quench_sweep(1.5, jnp.asarray(g1, jnp.float32), params0=jnp.asarray(p0, jnp.float32), **grid)
+les = np.asarray(les)
+print(json.dumps([str(les.dtype), les.astype(np.float64).tolist()]))
+"""
+
+
+def test_float32_quench_gap_is_the_method():
+    """Classifies the float32 quench's larger rate error.  From the same
+    float32 start (the port's float64 L-BFGS ground state of tfim(1.5),
+    rounded), the JAX package in float32 (x64 off, engine="pallas" in
+    interpret mode, a subprocess) and the port in float32 on the CPU (the
+    plain K4/K5 in complex64) miss the exact Loschmidt rate alike: their
+    largest errors agree to 1.5e-3 (on this cut 9.474e-3 both, float64
+    8.976e-3), and the per-point scatter of each about the port's float64
+    rates has the same size (rms 4.9e-4 both).  On the full 64 x 30 x 80
+    grid on the CPU: JAX float32 9.47e-3, port float32 1.021e-2, float64
+    8.976e-3, the float32 runs' rates differing by up to 2.8e-3 at a point;
+    the card's 0.0122 lies inside that scatter.  The subprocess runs
+    without the suite's cheap-codegen XLA flags (interpret mode runs
+    several times slower under them) and shares its compilation cache."""
+    gs = find_ground_state(tfim(1.5), D=2, ansatz="full15", method="lbfgs", steps=300, device="cpu")
+    p32 = gs.params.detach().float()
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    if jax.config.jax_compilation_cache_dir:
+        env.update(JAX_COMPILATION_CACHE_DIR=jax.config.jax_compilation_cache_dir,
+                   JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0.2")
+    args = json.dumps([p32.tolist(), _Q32_G1.tolist(), _Q32_GRID])
+    jax_run = subprocess.Popen([sys.executable, "-c", _JAX_F32_QUENCH, args], cwd=REPO, env=env,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        times, les32 = batched_quench_sweep(1.5, torch.from_numpy(_Q32_G1), params0=p32, device="cpu", **_Q32_GRID)
+        _, les64 = batched_quench_sweep(1.5, torch.from_numpy(_Q32_G1), params0=gs.params, device="cpu",
+                                        **_Q32_GRID)
+        out, err = jax_run.communicate(timeout=600)
+    finally:
+        jax_run.kill()
+        jax_run.wait()
+    assert jax_run.returncode == 0, err[-3000:]
+    jax_dtype, les_j = json.loads(out.strip().splitlines()[-1])
+    assert jax_dtype == "float32" and les32.dtype == torch.float32 and les64.dtype == torch.float64
+    t = to_np(times).astype(np.float64)
+    exact = np.stack([loschmidt_rate(t, 1.5, g) for g in _Q32_G1])
+    rate = {"port32": -np.log(to_np(les32).astype(np.float64)), "jax32": -np.log(np.asarray(les_j)),
+            "port64": -np.log(to_np(les64))}
+    worst = {k: np.abs(r - exact).max() for k, r in rate.items()}
+    rms = {k: np.sqrt(np.mean((rate[k] - rate["port64"]) ** 2)) for k in ("port32", "jax32")}
+    print(f"max |rate - exact|: {worst}; rms float32 - float64: {rms}")
+    np.testing.assert_allclose(worst["port64"], 8.976e-3, atol=1e-5)
+    assert worst["port32"] < 0.02 and worst["jax32"] < 0.02
+    assert abs(worst["port32"] - worst["jax32"]) < 1.5e-3
+    assert 0.5 < rms["port32"] / rms["jax32"] < 2.0 and max(rms.values()) < 2e-3
 
 
 @pytest.mark.parametrize("entry", ["find_ground_state", "sweep_ground_states_fused", "batched_quench_sweep"])

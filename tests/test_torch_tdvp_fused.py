@@ -181,3 +181,74 @@ def test_loschmidt_rate_matches_jax():
                                        atol=1e-10)
     t = np.linspace(0.0, 1.0, 5)
     np.testing.assert_allclose(loschmidt_rate(t, 1.5, 0.2), [loschmidt_rate(x, 1.5, 0.2) for x in t], atol=1e-15)
+
+
+def _k5_lanes(As, Bs, Wb, lam, v, u, ct):
+    """K5's 16-lane layout (``csrc/tdvp_fused.cu::tdvp_bwd_lanes_kernel``)
+    emulated, batched over elements: each stage a 16-entry tile, lane l
+    forming entry l from the tiles of the stage before, in the kernel's
+    stage order and index maps.  -> (Abar, Bbar, Wbar) as K5 stores them."""
+    a, bt, w = As.reshape(-1, 8), Bs.reshape(-1, 8), Wb.reshape(-1, 16)
+    n2 = lam.real.square() + lam.imag.square()
+    d = (u.conj() * v).sum(-1)
+    dn = 1.0 / torch.clamp(d.real.square() + d.imag.square(), min=1e-30)
+    coef = (-ct * dn) * (torch.rsqrt(torch.clamp(n2, min=1e-30)) * lam.conj() * d.conj())
+    cu = coef[:, None] * u.conj()
+    zero = torch.zeros_like(lam)
+    aa, bb, waa, P, C, Wbar, Q = ([None] * 16 for _ in range(7))
+    for l in range(16):  # AA[l], BB[l], WAA[l]: each lane builds AA[t, q4] for all t
+        s, hi, lo = l >> 2, (l >> 1) & 1, l & 1
+        aat = [a[:, (t >> 1) * 4 + hi * 2] * a[:, (t & 1) * 4 + lo]
+               + a[:, (t >> 1) * 4 + hi * 2 + 1] * a[:, (t & 1) * 4 + 2 + lo] for t in range(4)]
+        aa[l] = aat[s]
+        waa[l] = sum((w[:, s * 4 + t] * aat[t] for t in range(4)), zero)
+        bb[l] = bt[:, (s >> 1) * 4 + hi * 2] * bt[:, (s & 1) * 4 + lo] \
+            + bt[:, (s >> 1) * 4 + hi * 2 + 1] * bt[:, (s & 1) * 4 + 2 + lo]
+    for l in range(16):  # P[s, i = hi, k = lo], C[s, j = hi, l' = lo]
+        s, hi, lo = l >> 2, (l >> 1) & 1, l & 1
+        P[l] = sum((cu[:, hi * 2 + j] * sum((v[:, lo * 2 + l2] * bb[s * 4 + j * 2 + l2].conj() for l2 in range(2)), zero)
+                    for j in range(2)), zero)
+        C[l] = sum((cu[:, i * 2 + hi] * sum((v[:, k * 2 + lo] * waa[s * 4 + i * 2 + k] for k in range(2)), zero)
+                    for i in range(2)), zero).conj()
+    for l in range(16):  # Wbar[s, t = q4], Q[t = s, ik = q4]
+        s, q4 = l >> 2, l & 3
+        Wbar[l] = sum((P[s * 4 + ik] * aa[q4 * 4 + ik] for ik in range(4)), zero)
+        Q[l] = sum((P[s2 * 4 + q4] * w[:, s2 * 4 + s] for s2 in range(4)), zero)
+    bars = []
+    for l in range(16):  # lanes 0-7 Abar (Q, A), lanes 8-15 Bbar (C, B)
+        g, x = (Q, a) if l < 8 else (C, bt)
+        o = l & 7
+        so, p, c = o >> 2, (o >> 1) & 1, o & 1
+        acc = zero
+        for t in range(2):
+            for j in range(2):
+                acc = acc + g[(so * 2 + t) * 4 + p * 2 + j] * x[:, t * 4 + c * 2 + j]
+            for i in range(2):
+                acc = acc + g[(t * 2 + so) * 4 + i * 2 + c] * x[:, t * 4 + i * 2 + p]
+        bars.append(acc)
+    stack = lambda xs: torch.stack(xs, -1)
+    return stack(bars[:8]).reshape(-1, 2, 2, 2), stack(bars[8:]).reshape(-1, 2, 2, 2), stack(Wbar).reshape(-1, 4, 4)
+
+
+@pytest.mark.parametrize("batched_w", [False, True])
+def test_k5_lane_map_matches_plain(batched_w):
+    """K5's lane map against the plain adjoint ``_bwd_plain``: at complex128
+    to 1e-12; in complex64 arithmetic (the card's) against complex128 within
+    chip_smoke.tdvp_check's gate, 2e-4 times max(1, the element's largest
+    |bar|), on quench-like inputs and a cotangent that varies by element."""
+    B = 33
+    A, Bt, W = _quench_like(B, 20)
+    Wb = torch.from_numpy(W).expand(B, 4, 4) if not batched_w else torch.from_numpy(
+        np.stack([_W(30 + b) for b in range(B)]))
+    As, Bs = torch.from_numpy(A), torch.from_numpy(Bt)
+    lam, v, u = ttf._fwd_plain(As, Bs, Wb, 48, True)
+    ct = torch.linspace(0.5, 1.5, B, dtype=torch.float64)
+    want = ttf._bwd_plain(As, Bs, Wb, lam, v, u, ct)
+    for got, ref in zip(_k5_lanes(As, Bs, Wb, lam, v, u, ct), want):
+        np.testing.assert_allclose(to_np(got), to_np(ref), atol=1e-12)
+    c64 = torch.complex64
+    got32 = _k5_lanes(*(t.to(c64) for t in (As, Bs, Wb, lam, v, u)), ct.float())
+    for got, ref in zip(got32, want):
+        err = np.abs(to_np(got).astype(np.complex128) - to_np(ref)).reshape(B, -1).max(1)
+        scale = np.maximum(1.0, np.abs(to_np(ref)).reshape(B, -1).max(1))
+        assert got.dtype == c64 and np.all(err <= 2e-4 * scale), (err / scale).max()
