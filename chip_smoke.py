@@ -12,7 +12,8 @@ Phases (any failure exits non-zero, and nothing is caught):
      complex128 on the card;
   4. energy (K2, K3): the sweep's own first-step batch (1024 points x 4
      restarts); forward and adjoint kernels against the plain versions at
-     complex128; K2 also at 65,536 (the layout the launcher picks there);
+     complex128, K3 timed by raw and by queued launches; K2 and K3 also at
+     65,536 (the layouts the launchers pick there);
   5. main path, optimize: the config-4 phase-diagram sweep (1024 values of
      g, 300 steps, 4 restarts) on the card, then the represent step on the
      returned states; every returned tensor is read back in float64 against
@@ -40,7 +41,8 @@ Phases (any failure exits non-zero, and nothing is caught):
      state of tfim(1.5), each with the exact right environment of its pair,
      W the quench window gate); every element against the plain version at
      complex128 to 1e-5; kernel, plain version and one batched torch.einsum
-     of the 13 operands timed at 65,536;
+     of the 13 operands timed at 65,536, the kernel also at config 5's
+     16,384, by raw and by queued launches;
   9. main path, config 5: BrickworkConfig().run() (16,384 x 30), both rates,
      the launch counter showing that K6 carried the fused row;
  10. the brickwork family in float32 (``brickwork_family``, which
@@ -56,10 +58,11 @@ Phases (any failure exits non-zero, and nothing is caught):
      12's 4,096 pairs, E (4,096, the path's input) and [E, E^dag] (8,192,
      the input of earlier runs); every element's lam (2e-5) and v up to
      phase (1e-4) against the plain version at complex128, both through the
-     same _extract_eigpair; the HMMA (tensor-core) instructions of K8's
-     kernels in the library's SASS (cuobjdump); kernel timed on both
-     inputs, plain version and torch.linalg.eig on E (one call after one
-     warm-up call); K8's device-memory path timed at N = 256;
+     same _extract_eigpair; the HMMA (tensor-core) instructions of K7's
+     and K8's kernels in the library's SASS (cuobjdump); kernel timed on
+     both inputs, plain version and torch.linalg.eig on E (one call after
+     one warm-up call), K7's bound with its products on the tensor cores
+     and on the CUDA cores; K8's device-memory path timed at N = 256;
  12. main path, the batched D >= 3 TDVP objective: tdvp_objective_pallas
      and its Bs-gradient on 4,096 pairs at D = 4 (K7) and D = 8 (K8) with a
      per-pair gate, every element against the dense objective at
@@ -75,8 +78,8 @@ are those of their functions, every squaring of a complex matrix counted
 in its three-product form (``csquare_flops``), K4 with one squaring chain
 for both eigenvectors; K6's those of the cheapest pairwise contraction
 order of its network (``cheapest_contraction``).  All run on the float32
-CUDA cores (67 TFLOP/s) but K8's products, which run on the tensor cores
-in 3xTF32: three TF32 products each, over 495 TFLOP/s.
+CUDA cores (67 TFLOP/s) but K7's and K8's products, which run on the
+tensor cores in 3xTF32: three TF32 products each, over 495 TFLOP/s.
 Prints one JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -126,9 +129,10 @@ def matpow_flops(N, iters):
 
 
 def matpow_tc_flops(N, iters):
-    """K8 on the tensor cores: (TF32 flops, float32 flops).  The three real
-    products of each squaring (6 N^3) in 3xTF32, three TF32 products each;
-    the rest of ``matpow_flops`` (the N^2 work) on the CUDA cores."""
+    """K7 and K8 on the tensor cores: (TF32 flops, float32 flops).  The
+    three real products of each squaring (6 N^3) in 3xTF32, three TF32
+    products each; the rest of ``matpow_flops`` (the N^2 work) on the CUDA
+    cores."""
     products = iters * 6 * N ** 3
     return 3 * products, matpow_flops(N, iters) - products
 
@@ -189,11 +193,11 @@ def kernel_work(name, B, w_bytes=0):
     and each output byte written once (``w_bytes``: a W read once per launch
     or per element).  K1-K5 and K7-K8 count their functions, each squaring
     in its three-product form (``csquare_flops``); K4 one squaring chain and
-    the left vector read off its power; K8's products on the tensor cores
-    (``matpow_tc_flops``); K6 the cheapest contraction of its network (1,444
-    multiply-adds: Ml and Mr fold into the outer c2 and r2 first, and W's
-    1,024 dominate), not the 2,240 multiply-adds and 384 products of the
-    kernel as written."""
+    the left vector read off its power; K7's and K8's products on the
+    tensor cores (``matpow_tc_flops``); K6 the cheapest contraction of its
+    network (1,444 multiply-adds: Ml and Mr fold into the outer c2 and r2
+    first, and W's 1,024 dominate), not the 2,240 multiply-adds and 384
+    products of the kernel as written."""
     k6 = cheapest_contraction(K6_NETWORK)
     aa, e = 16 * (CMUL + CMAC), 64 * CMAC  # build_AA, build_E
     flops, nbytes = {
@@ -209,11 +213,12 @@ def kernel_work(name, B, w_bytes=0):
         "K5": (2 * aa + e + 2 * 96 * CMAC + 4 * 64 * CMAC + 60,
                64 + 64 + 32 + 32 + 8 + 4 + 64 + 64 + 128),
         "K6": (CMAC * k6[0] + CMUL * k6[1], 128 + 128 + 32 + 32 + 32 + 32 + 8),
-        # the main path's N: D = 4 and D = 8 transfer matrices, read and written once
-        "K7": (matpow_flops(16, TDVP_ITERS), 2 * 8 * 16 ** 2),
+        # the main path's N: D = 4 and D = 8 transfer matrices, read and
+        # written once, their products on the tensor cores
+        "K7": (matpow_tc_flops(16, TDVP_ITERS)[1], 2 * 8 * 16 ** 2),
         "K8": (matpow_tc_flops(64, TDVP_ITERS)[1], 2 * 8 * 64 ** 2),
     }[name]
-    tc = matpow_tc_flops(64, TDVP_ITERS)[0] if name == "K8" else 0
+    tc = matpow_tc_flops({"K7": 16, "K8": 64}[name], TDVP_ITERS)[0] if name in ("K7", "K8") else 0
     return flops * B, nbytes * B + w_bytes, tc * B
 
 
@@ -495,7 +500,7 @@ def matpow_check(tpp, tag, E):
 
 
 def sass_hmma(lib_path):
-    """{symbol: HMMA instructions} of every K8 tensor-core kernel
+    """{symbol: HMMA instructions} of every K7 and K8 tensor-core kernel
     (``matpow_tc_kernel``) in the library's SASS, by cuobjdump beside nvcc."""
     from qmps_torch.kernels import _lib
 
@@ -628,13 +633,12 @@ def main() -> int:
             B, 48, stream), 50),
         plain_ms=cuda_ms(lambda: tef._fwd_plain(A, h, 48), 5),
     )
-    results["K3"] = dict(
-        max_abs_err=err_A,
-        ms=cuda_ms(lambda: lib.qmps_energy_bwd(
-            A.data_ptr(), h.data_ptr(), v.data_ptr(), lam.data_ptr(), ct.data_ptr(),
-            Abar_o.data_ptr(), hbar_o.data_ptr(), B, tef.SERIES_K, stream), 50),
-        plain_ms=cuda_ms(lambda: tef._bwd_plain(A, h, lam, v, ct), 5),
-    )
+    def launch3():
+        lib.qmps_energy_bwd(A.data_ptr(), h.data_ptr(), v.data_ptr(), lam.data_ptr(), ct.data_ptr(),
+                            Abar_o.data_ptr(), hbar_o.data_ptr(), B, tef.SERIES_K, stream)
+
+    results["K3"] = dict(max_abs_err=err_A, ms=cuda_ms(launch3, 50), device_ms=cuda_ms(launch3, 200, queued=True),
+                         plain_ms=cuda_ms(lambda: tef._bwd_plain(A, h, lam, v, ct), 5))
     require(torch.equal(e_o, e) and torch.equal(v_o, v) and torch.equal(Abar_o, Abar)
             and torch.equal(hbar_o, hbar), "K2, K3 timed launches reproduce their outputs")
     # K2 at 65,536, where the launcher may pick another layout than at the
@@ -649,6 +653,28 @@ def main() -> int:
           f"|dv| {errs2[2]:.3g} (tol 1e-4)")
     require(errs2[0] < 2e-5 and errs2[1] < 1e-5 and errs2[2] < 1e-4, f"K2 against its plain version ({TDVP_BATCH})")
     results["K2"]["max_abs_err"] = max(err_e, errs2[0])
+    # K3 there too, on K2's outputs, under the gates of the sweep's batch
+    ct2 = torch.ones(TDVP_BATCH, device=dev)
+    Abar2, hbar2 = tef._bwd_cuda(A2, h2, lam2, v2, ct2)
+    Abar2_p, hbar2_p = tef._bwd_plain(A2.to(c128), h2.to(c128), lam2_p, v2_p, ct2.double())
+    err_h2 = (hbar2.to(c128) - hbar2_p).abs().max().item()
+    dA2 = (Abar2.to(c128) - Abar2_p).abs().reshape(TDVP_BATCH, -1).max(1).values
+    err_A2 = (dA2 / Abar2_p.abs().reshape(TDVP_BATCH, -1).max(1).values.clamp(min=1.0)).max().item()
+    Abar2_o, hbar2_o = torch.empty_like(Abar2), torch.empty_like(hbar2)
+    A2, h2 = A2.contiguous(), h2.contiguous()  # the raw launches read the memory as is
+
+    def launch3_big():
+        lib.qmps_energy_bwd(A2.data_ptr(), h2.data_ptr(), v2.data_ptr(), lam2.data_ptr(), ct2.data_ptr(),
+                            Abar2_o.data_ptr(), hbar2_o.data_ptr(), TDVP_BATCH, tef.SERIES_K, stream)
+
+    results["K3"].update(max_abs_err=max(err_A, dA2.max().item()), batch_big=TDVP_BATCH,
+                         device_ms_big=cuda_ms(launch3_big, 50, queued=True),
+                         bound_ms_big=bound(*kernel_work("K3", TDVP_BATCH))[0])
+    require(torch.equal(Abar2_o, Abar2) and torch.equal(hbar2_o, hbar2), "K3 timed launches reproduce its output")
+    print(f"K3 ({TDVP_BATCH}): |dhbar| {err_h2:.3g} (tol 3e-4), |dAbar| {dA2.max().item():.3g}, |dAbar|/max(1,|Abar|) "
+          f"{err_A2:.3g} (tol 3e-4); queued {results['K3']['device_ms_big']:.5f} ms. At {B}: raw "
+          f"{results['K3']['ms']:.5f} ms, queued {results['K3']['device_ms']:.5f} ms")
+    require(err_h2 < 3e-4 and err_A2 < 3e-4, f"K3 against its plain version ({TDVP_BATCH})")
     # no single PyTorch call computes the energy objective or its adjoint
     for k in ("K2", "K3"):
         results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, B))), library_ms=None)
@@ -890,6 +916,24 @@ def main() -> int:
     print(f"K6 times ({BW_BATCH}): kernel {ms6:.5f} ms, plain {results['K6']['plain_ms']:.4f} ms, "
           f"one torch.einsum {results['K6']['library_ms']:.4f} ms, bound {results['K6']['bound_ms']:.5f} ms "
           f"({results['K6']['bound_by']})")
+    # K6 at config 5's own batch (16,384) on its own inputs, the launches of
+    # phase 9: raw, and queued behind a spin kernel (the card's time)
+    U1, U2, U1p, U2p, Mr, Ml, W = sets["config 5's inputs"]
+    n5 = U1.shape[0]
+    c2, r2 = U2[:, :, 0].contiguous(), U2p[:, :, 0].conj().resolve_conj().contiguous()
+    out5 = torch.empty(n5, dtype=c64, device=dev)
+
+    def launch6_cfg5():
+        lib.qmps_brickwork_overlap(U1.data_ptr(), c2.data_ptr(), U1p.data_ptr(), r2.data_ptr(), Ml.data_ptr(),
+                                   Mr.data_ptr(), W.data_ptr(), out5.data_ptr(), n5, stream)
+
+    results["K6"].update(batch_config5=n5, ms_config5=cuda_ms(launch6_cfg5, 200),
+                         device_ms_config5=cuda_ms(launch6_cfg5, 200, queued=True),
+                         bound_ms_config5=bound(*kernel_work("K6", n5, w_bytes=2048))[0])
+    require(torch.equal(out5, k6.manifold_overlap_pallas(U1, U2, U1p, U2p, Mr, Ml, W)),
+            "K6 timed launches reproduce its output (config 5's batch)")
+    print(f"K6 at config 5's batch ({n5}): raw {results['K6']['ms_config5']:.5f} ms, queued "
+          f"{results['K6']['device_ms_config5']:.5f} ms, bound {results['K6']['bound_ms_config5']:.5f} ms")
 
     # ---- 9. main path, config 5: the brickwork overlap throughput ----
     cfg5 = BrickworkConfig()
@@ -932,8 +976,9 @@ def main() -> int:
           f"{max(e[0] for e in tc):.3g}, v {max(e[1] for e in tc):.3g}. The CUDA-core K8 of earlier runs: "
           f"lam 6.5e-7, v 1.3e-6 at random N = 64 (PERF.md)")
     hmma = sass_hmma(path)
-    print("K8 SASS (cuobjdump -sass): " + "; ".join(f"{n} {c} HMMA" for n, c in sorted(hmma.items())))
-    require(len(hmma) == 3 and min(hmma.values()) > 0, f"K8's kernels run on the tensor cores {hmma}")
+    print("K7/K8 SASS (cuobjdump -sass): " + "; ".join(f"{n} {c} HMMA" for n, c in sorted(hmma.items())))
+    # one kernel a padded size: 16 (K7), 32, 48, 64 (K8)
+    require(len(hmma) == 4 and min(hmma.values()) > 0, f"K7's and K8's kernels run on the tensor cores {hmma}")
     # kernel times on both inputs: raw launches into a preallocated output,
     # then checked against the wrapper's
     for D, (k, _) in BIG_DS.items():
@@ -959,10 +1004,14 @@ def main() -> int:
                           library_ms=cuda_ms(lambda: eig_dominant(E), 1))
         results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, BIG_BATCH))))
         results[k]["bound_ms_e_edag_8192"] = bound(*kernel_work(k, 2 * BIG_BATCH))[0]
+        # the bound of the same work with the products on the CUDA cores
+        results[k]["bound_ms_cuda_cores"] = bound(matpow_flops(N, TDVP_ITERS) * BIG_BATCH,
+                                                  kernel_work(k, BIG_BATCH)[1])[0]
         print(f"{k} times ({N}x{N}, {TDVP_ITERS} squarings): kernel {ms['E']:.5f} ms on E ({BIG_BATCH}), "
               f"{ms['[E, E^dag]']:.5f} ms on [E, E^dag] ({2 * BIG_BATCH}); plain {results[k]['plain_ms']:.4f} ms, "
               f"torch.linalg.eig + pick {results[k]['library_ms']:.1f} ms, bound {results[k]['bound_ms']:.5f} ms "
-              f"({results[k]['bound_by']}) on E")
+              f"({results[k]['bound_by']}, the products on the tensor cores; on the CUDA cores "
+              f"{results[k]['bound_ms_cuda_cores']:.5f} ms) on E")
     # K8's device-memory path (matpow_global_kernel, N > 64) on the N = 256
     # set: raw launches into a preallocated output and workspace
     n256 = E256.shape[0]

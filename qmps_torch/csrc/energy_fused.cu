@@ -28,10 +28,21 @@
 // SM carrying the 48-squaring chain.  Up to kEnergyQuadMaxB it runs over a
 // quad of lanes an element as K4 does (planes.cuh::quad_squarings4): 512
 // warps, 16 multiply-adds a lane a squaring.  K3, one thread an element, is
-// the register-heavy one: the series carries the 4x4 X and its square
-// beside z.  It therefore rebuilds AA, r and M and re-reads h AFTER the
-// series instead of keeping them live across it, so only A, v, lam, ct and
-// the series state cross the loop.
+// the register-heavy one (255 registers): the series carries the 4x4 X and
+// its square beside z.  It therefore rebuilds AA, r and M and re-reads h
+// AFTER the series instead of keeping them live across it, so only A, v,
+// lam, ct and the series state cross the loop.  At the sweep's 4,096 that
+// was 128 one-warp blocks, one warp an SM carrying the 24 doublings of
+// ~80 dependent multiply-adds: 0.0162 ms, 9% of its bound.  Up to
+// kEnergyBwdQuadMaxB K3 runs over a quad of lanes an element as K2 does
+// (energy_bwd_quad_kernel): lane r owns x[r] and row r of X (20
+// multiply-adds and 40 shuffles a lane a doubling), writes row r of hbar
+// and G's two-site slot r, and butterflies sum r2bar and Abar.  Measured
+// (qmps_torch/kernel_ab.py; NVIDIA H100 80GB HBM3, 700 W): 0.0082 ms at
+// 4,096, 0.0112 at 8,192 against one thread's 0.0169; above, one thread
+// wins again (0.0187 against 0.0197 at 12,288): the quad takes 210
+// registers a lane, 9 warps an SM, and capped at 128 it spills 308 bytes
+// and runs 1.6x slower.
 #include "planes.cuh"
 
 namespace qmps {
@@ -153,20 +164,11 @@ __global__ void __launch_bounds__(kQuadThreads)
   }
   trace_gauge(v);
 
-  c32 aa[16], r1[4], r2[4], tau, mm[16];
+  c32 aa[16], r1[4], r2[4], tau, mm[16], aar[4];
   build_AA(a, aa);
   r_chain(v, r1, r2, tau);
   build_M(aa, r2, mm);
-  // AA[t = r, :], selected in registers (an index by r would put aa in
-  // local memory)
-  c32 aar[4];
-#pragma unroll
-  for (int ik = 0; ik < 4; ++ik) {
-    aar[ik] = aa[ik];
-#pragma unroll
-    for (int t = 1; t < 4; ++t)
-      if (t == r) aar[ik] = aa[t * 4 + ik];
-  }
+  select_row(aa, r, aar);  // AA[t = r, :]
   const float2* h = H + b * 16;
   float en = 0.f;
 #pragma unroll
@@ -187,6 +189,106 @@ __global__ void __launch_bounds__(kQuadThreads)
 #pragma unroll
   for (int c = 0; c < 4; ++c)
     if (c == r) st(v_out + b * 4, c, v[c]);
+}
+
+// r2bar -> r1bar (r2 = r1 / tau) -> vbar = (r1bar + r1bar^dag) / 2 (r1 =
+// herm(r0)), projected onto the solvable subspace: q = vbar - (v.vbar) /
+// (v.w) w, w = vec(I) (wden floor, energy_fused.py:423)
+__device__ __forceinline__ void vbar_projected(const c32 r2bar[4], const c32 r1[4], c32 tau, const c32 v[4],
+                                               c32 q[4]) {
+  // r1bar = r2bar / tau - (sum r2bar * r1) / tau^2 * I
+  c32 inner = mk(0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cfma(inner, r2bar[k], r1[k]);
+  const float den = 1.0f / fmaxf(norm2(tau), 1e-30f);
+  const c32 t2 = conj(tau) * conj(tau);
+  const c32 c2 = inner * mk(t2.re * den * den, t2.im * den * den);
+  c32 r1bar[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    c32 d = mk((r2bar[k].re * tau.re + r2bar[k].im * tau.im) * den,
+               (r2bar[k].im * tau.re - r2bar[k].re * tau.im) * den);
+    r1bar[k] = (k == 0 || k == 3) ? d - c2 : d;
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+      q[x * 2 + y] = mk((r1bar[x * 2 + y].re + r1bar[y * 2 + x].re) * 0.5f,
+                        (r1bar[x * 2 + y].im - r1bar[y * 2 + x].im) * 0.5f);
+  c32 vq = mk(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cfma(vq, v[i], q[i]);
+  const c32 alpha = cdiv_floored(vq, v[0] + v[3]);
+  q[0] = q[0] - alpha;
+  q[3] = q[3] - alpha;
+}
+
+// Row i of the series matrix X = (E^T - lam w v^T / (v.w)) / lam from
+// column i of E (lden floor, energy_fused.py:432)
+__device__ __forceinline__ void series_row(const c32 ecol[4], int i, c32 lam, const c32 v[4], c32 row[4]) {
+  const c32 vw = v[0] + v[3];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    c32 x = ecol[j];
+    if (i == 0 || i == 3) x = x - cdiv_floored(lam * v[j], vw);
+    row[j] = cdiv_floored(x, lam);
+  }
+}
+
+// G[(s1 s2) = r, :, :] = dE/dAA at one two-site slot r (index i * 2 + j):
+// the direct ket slot (s = r), the direct bra slot (t = r) and the two
+// terms of Ebar = z v^T through the E build
+__device__ __forceinline__ void g_slot(const c32 aa[16], const c32 m[16], const c32 r2[4], const c32 z[4],
+                                       const c32 v[4], const float2* h, float ct, int r, c32 g[4]) {
+  c32 aar[4];
+  select_row(aa, r, aar);
+  // direct slot 1: G[r, i, j] = ct sum_t h[t, r] sum_k r2[j, k] conj(AA[t, i, k])
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      c32 acc = mk(0.f, 0.f);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        c32 c1 = r2[j * 2 + 0] * conj(aa[t * 4 + i * 2 + 0]);
+        cfma(c1, r2[j * 2 + 1], conj(aa[t * 4 + i * 2 + 1]));
+        cfma(acc, ld(h, t * 4 + r), c1);
+      }
+      g[i * 2 + j] = ct * acc;
+    }
+  // direct slot 2 (bra): G[r, i, k] += ct conj(sum_s h[r, s] M[s, i, k])
+#pragma unroll
+  for (int ik = 0; ik < 4; ++ik) {
+    c32 acc = mk(0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) cfma(acc, ld(h, r * 4 + s), m[s * 4 + ik]);
+    g[ik] = g[ik] + ct * conj(acc);
+  }
+  // Ebar: G[r, i, k] += sum_{j,l} Ebar[(i j), (k l)] conj(AA[r, j, l])
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      c32 acc = mk(0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int l = 0; l < 2; ++l) cfma(acc, z[i * 2 + j] * v[k * 2 + l], conj(aar[j * 2 + l]));
+      g[i * 2 + k] = g[i * 2 + k] + acc;
+    }
+  // G[r, j, l] += conj(sum_{i,k} Ebar[(i j), (k l)] AA[r, i, k])
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      c32 acc = mk(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) cfma(acc, z[i * 2 + j] * v[k * 2 + l], aar[i * 2 + k]);
+      g[j * 2 + l] = g[j * 2 + l] + conj(acc);
+    }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -235,49 +337,15 @@ __global__ void __launch_bounds__(kThreads)
           }
         r2bar[j * 2 + k] = ct * acc;
       }
+    vbar_projected(r2bar, r1, tau, v, q);
 
-    // r1bar = r2bar / tau - (sum r2bar * r1) / tau^2 * I
-    c32 inner = mk(0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) cfma(inner, r2bar[k], r1[k]);
-    const float den = 1.0f / fmaxf(norm2(tau), 1e-30f);
-    const c32 t2 = conj(tau) * conj(tau);
-    const c32 c2 = inner * mk(t2.re * den * den, t2.im * den * den);
-    c32 r1bar[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      c32 d = mk((r2bar[k].re * tau.re + r2bar[k].im * tau.im) * den,
-                 (r2bar[k].im * tau.re - r2bar[k].re * tau.im) * den);
-      r1bar[k] = (k == 0 || k == 3) ? d - c2 : d;
-    }
-    // r0bar = (r1bar + r1bar^dag) / 2 -> vbar
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-#pragma unroll
-      for (int y = 0; y < 2; ++y)
-        q[x * 2 + y] = mk((r1bar[x * 2 + y].re + r1bar[y * 2 + x].re) * 0.5f,
-                          (r1bar[x * 2 + y].im - r1bar[y * 2 + x].im) * 0.5f);
-
-    // project onto the solvable subspace: q -= (v.q)/(v.w) w, w = vec(I)
-    c32 vq = mk(0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) cfma(vq, v[i], q[i]);
-    const c32 vw = v[0] + v[3];
-    const c32 alpha = cdiv_floored(vq, vw);  // wden floor, energy_fused.py:423
-    q[0] = q[0] - alpha;
-    q[3] = q[3] - alpha;
-
-    // X = (E^T - lam w v^T / (v.w)) / lam   (lden floor, energy_fused.py:432)
     c32 e[16];
     build_E(aa, e);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c32 x = e[j * 4 + i];
-        if (i == 0 || i == 3) x = x - cdiv_floored(lam * v[j], vw);
-        X[i * 4 + j] = cdiv_floored(x, lam);
-      }
+    for (int i = 0; i < 4; ++i) {
+      const c32 ecol[4] = {e[i], e[4 + i], e[8 + i], e[12 + i]};
+      series_row(ecol, i, lam, v, X + i * 4);
+    }
   }
 
   // ---- z = (1/lam) sum_k X^k q  =  (1/lam) prod_k (I + X^(2^k)) q ----
@@ -302,73 +370,143 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) z[i] = cdiv_floored(x[i], lam);
 
-  // ---- after the series: rebuild AA, r2, M; G = dE/dAA ----
-  c32 aa[16], G[16];
+  // ---- after the series: rebuild AA, r2, M; G = dE/dAA, through the AA build ----
+  c32 G[16];
   {
-    c32 r1[4], r2[4], tau, m[16];
+    c32 aa[16], r1[4], r2[4], tau, m[16];
     build_AA(a, aa);
     r_chain(v, r1, r2, tau);
     build_M(aa, r2, m);
-    // direct slot 1: G[s, i, j] = ct sum_t h[t, s] sum_k r2[j, k] conj(AA[t, i, k])
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          c32 acc = mk(0.f, 0.f);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            c32 c1 = r2[j * 2 + 0] * conj(aa[t * 4 + i * 2 + 0]);
-            cfma(c1, r2[j * 2 + 1], conj(aa[t * 4 + i * 2 + 1]));
-            cfma(acc, ld(h, t * 4 + s), c1);
-          }
-          G[s * 4 + i * 2 + j] = ct * acc;
-        }
-    // direct slot 2 (bra): G[t, i, k] += ct conj(sum_s h[t, s] M[s, i, k])
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int ik = 0; ik < 4; ++ik) {
-        c32 acc = mk(0.f, 0.f);
-#pragma unroll
-        for (int s = 0; s < 4; ++s) cfma(acc, ld(h, t * 4 + s), m[s * 4 + ik]);
-        G[t * 4 + ik] = G[t * 4 + ik] + ct * conj(acc);
-      }
+    for (int s = 0; s < 4; ++s) g_slot(aa, m, r2, z, v, h, ct, s, G + s * 4);
   }
+  store_aa_adjoint(G, a, abar_out + (size_t)b * 8);
+}
 
-  // ---- Ebar = z v^T through the E build ----
-  // G[s, i, k] += sum_{j,l} Ebar[(i j), (k l)] conj(AA[s, j, l])
+// K3 over a quad of lanes an element (small batches), 8 elements a block.
+// Lane r writes row t = r of hbar and sums the t = r part of r2bar (a
+// butterfly adds the quad's parts); it owns x[r] and row r of the series
+// matrix X (column r of E, deflated), gathers x for the matvec and squares
+// its row as quad_squarings4 does (planes.cuh::quad_square_row); after the
+// series it computes G's slot (s1 s2) = r and that slot's part of every
+// Abar entry through the AA build, which a butterfly sums, and stores Abar
+// entries 2r and 2r + 1.  AA, r and M are built on every lane.
+__global__ void __launch_bounds__(kQuadThreads)
+    energy_bwd_quad_kernel(const float2* __restrict__ A, const float2* __restrict__ H,
+                           const float2* __restrict__ V, const float2* __restrict__ LAM,
+                           const float* __restrict__ CT, float2* __restrict__ abar_out,
+                           float2* __restrict__ hbar_out, int B, int K) {
+  const int r = threadIdx.x & 3;
+  const long long elem = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const bool live = elem < B;
+  // lanes past B compute on the last element (every lane takes part in the
+  // shuffles) and store nothing
+  const size_t b = live ? (size_t)elem : (size_t)(B - 1);
+  const float2* h = H + b * 16;
+  c32 a[8], v[4];
 #pragma unroll
-  for (int s = 0; s < 4; ++s)
+  for (int k = 0; k < 8; ++k) a[k] = ld(A + b * 8, k);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i) v[i] = ld(V + b * 4, i);
+  const c32 lam = ld(LAM, b);
+  const float ct = CT[b];
+
+  // ---- before the series: hbar row r, r2bar -> q, and row r of X ----
+  c32 x, xrow[4];
+  {
+    c32 aa[16], r1[4], r2[4], tau, m[16], aar[4];
+    build_AA(a, aa);
+    r_chain(v, r1, r2, tau);
+    build_M(aa, r2, m);
+    select_row(aa, r, aar);  // AA[t = r, :]
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      c32 T = mk(0.f, 0.f);  // T[r, s], T_entry's sum
+#pragma unroll
+      for (int ik = 0; ik < 4; ++ik) cfma(T, m[s * 4 + ik], conj(aar[ik]));
+      if (live) st(hbar_out + b * 16, r * 4 + s, ct * T);
+    }
+    // r2bar[j, k]: this lane's t = r part, summed over the quad
+    c32 r2bar[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         c32 acc = mk(0.f, 0.f);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int s = 0; s < 4; ++s) {
+          const c32 hts = ld(h, r * 4 + s);
 #pragma unroll
-          for (int l = 0; l < 2; ++l) cfma(acc, z[i * 2 + j] * v[k * 2 + l], conj(aa[s * 4 + j * 2 + l]));
-        G[s * 4 + i * 2 + k] = G[s * 4 + i * 2 + k] + acc;
+          for (int i = 0; i < 2; ++i) cfma(acc, hts, aa[s * 4 + i * 2 + j] * conj(aar[i * 2 + k]));
+        }
+        r2bar[j * 2 + k] = ct * quad_sum(acc);
       }
-  // G[s, j, l] += conj(sum_{i,k} Ebar[(i j), (k l)] AA[s, i, k])
+    c32 q[4], ecol[4];
+    vbar_projected(r2bar, r1, tau, v, q);
+    x = q[0];
 #pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int l = 0; l < 2; ++l) {
-        c32 acc = mk(0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int k = 0; k < 2; ++k) cfma(acc, z[i * 2 + j] * v[k * 2 + l], aa[s * 4 + i * 2 + k]);
-        G[s * 4 + j * 2 + l] = G[s * 4 + j * 2 + l] + conj(acc);
-      }
+    for (int i = 1; i < 4; ++i)
+      if (i == r) x = q[i];
+    build_E_col(aa, r, ecol);
+    series_row(ecol, r, lam, v, xrow);
+  }
 
-  // ---- through the AA build ----
-  store_aa_adjoint(G, a, abar_out + (size_t)b * 8);
+  // ---- the series: lane r holds x[r] and row r of X ----
+  for (int it = 0; it < K; ++it) {
+    c32 nx = x, x2[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cfma(nx, xrow[j], quad_get(x, j));
+    quad_square_row(xrow, x2);
+    x = nx;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) xrow[c] = x2[c];
+  }
+  c32 z[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) z[i] = cdiv_floored(quad_get(x, i), lam);
+
+  // ---- after the series: G's slot r, then its part of Abar ----
+  c32 g[4];
+  {
+    c32 aa[16], r1[4], r2[4], tau, m[16];
+    build_AA(a, aa);
+    r_chain(v, r1, r2, tau);
+    build_M(aa, r2, m);
+    g_slot(aa, m, r2, z, v, h, ct, r, g);
+  }
+  // store_aa_adjoint split by slot: slot r = (s1 s2) enters out[s, p, c] =
+  // sum_{t,j} g[(s t), p, j] A[t, c, j] + sum_{t,i} g[(t s), i, c] A[t, i, p]
+  // at (s, t) = (s1, s2) in the first sum and (t, s) = (s1, s2) in the second
+  const int s1 = r >> 1, s2 = r & 1;
+  c32 a1[4], a2[4];  // A[s1], A[s2]
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a1[k] = s1 ? a[4 + k] : a[k];
+    a2[k] = s2 ? a[4 + k] : a[k];
+  }
+  c32 first[4], second[4];  // index p * 2 + c
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      c32 f = mk(0.f, 0.f), sc = mk(0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) cfma(f, g[p * 2 + j], a2[c * 2 + j]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) cfma(sc, g[i * 2 + c], a1[i * 2 + p]);
+      first[p * 2 + c] = f;
+      second[p * 2 + c] = sc;
+    }
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int pc = 0; pc < 4; ++pc) {
+      c32 o = mk(0.f, 0.f);
+      if (s == s1) o = o + first[pc];
+      if (s == s2) o = o + second[pc];
+      o = quad_sum(o);
+      if (live && (s * 4 + pc) >> 1 == r) st(abar_out + b * 8, s * 4 + pc, o);
+    }
 }
 
 }  // namespace qmps
@@ -376,6 +514,8 @@ __global__ void __launch_bounds__(kThreads)
 // The largest batch K2 runs over quads of lanes; above it, one thread an
 // element.
 constexpr int kEnergyQuadMaxB = 8192;
+// The same for K3.
+constexpr int kEnergyBwdQuadMaxB = 8192;
 
 // A (B, 2, 2, 2) and h (B, 4, 4) complex64 -> e (B,) float32, lam (B,)
 // complex64, v (B, 4) complex64.  Returns cudaGetLastError().
@@ -399,9 +539,17 @@ extern "C" int qmps_energy_fwd(const void* A, const void* h, void* e, void* lam,
 // Returns cudaGetLastError().
 extern "C" int qmps_energy_bwd(const void* A, const void* h, const void* v, const void* lam,
                                const void* ct, void* abar, void* hbar, int B, int K, void* stream) {
-  const int grid = (B + qmps::kThreads - 1) / qmps::kThreads;
-  qmps::energy_bwd_kernel<<<grid, qmps::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)A, (const float2*)h, (const float2*)v, (const float2*)lam, (const float*)ct,
-      (float2*)abar, (float2*)hbar, B, K);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= kEnergyBwdQuadMaxB) {
+    const int grid = (int)((4LL * B + qmps::kQuadThreads - 1) / qmps::kQuadThreads);
+    qmps::energy_bwd_quad_kernel<<<grid, qmps::kQuadThreads, 0, s>>>(
+        (const float2*)A, (const float2*)h, (const float2*)v, (const float2*)lam, (const float*)ct,
+        (float2*)abar, (float2*)hbar, B, K);
+  } else {
+    const int grid = (B + qmps::kThreads - 1) / qmps::kThreads;
+    qmps::energy_bwd_kernel<<<grid, qmps::kThreads, 0, s>>>(
+        (const float2*)A, (const float2*)h, (const float2*)v, (const float2*)lam, (const float*)ct,
+        (float2*)abar, (float2*)hbar, B, K);
+  }
   return (int)cudaGetLastError();
 }

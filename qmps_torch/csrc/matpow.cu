@@ -24,13 +24,29 @@
 // multiply-adds against 16 N^2 bytes that the whole loop reads and writes
 // once: at N = 16 and 48 squarings ~1,000 flops a byte.
 //
-// K7 (4 < N <= 16): float32 FMAs on the CUDA cores, one warp an element, 8
-// elements a block.  The power lives in shared memory (N^2 x 8 B, 2 KB at
-// N = 16); the square is held in registers: lane l owns column j = l % N
-// and the rows r0, r0 + R, ... (r0 = l / N, R = 32 / N lanes a column; at
-// N = 16 two lanes a column, eight rows each), so the column entry it loads
-// is used ROWS times and the row entries are broadcasts.  The norm is a
-// __shfl_xor_sync butterfly.
+// K7 (4 < N <= 16), one warp an element.  On the CUDA cores
+// (matpow_small_kernel, 8 elements a block) every multiply-add costs a
+// shared-memory load of a row entry, so the 4,096 D = 4 E took 0.214 ms,
+// 37% of the float32 bound.  From kMatpowTcMinN on, K7 therefore squares
+// on the tensor cores as K8 does (matpow_tc_kernel at T = 1): the power
+// padded to 16 x 16, 36 mma a squaring, kTcElems elements a block, each
+// warp on its own planes, synchronised by __syncwarp and warp_sum alone.
+// Only R and I have planes (rows of 48 floats, 6 KB an element), S = R + I
+// is summed from the entries a thread loads, so all 4,096 elements of the
+// objective's call fit on the card at once (three planes, one wave and a
+// third: 6% slower).  What bounds it there is the issue rate, not the
+// tensor cores: the 3xTF32 splits of 48 fragment values, the epilogue and
+// the norm make ~400 instructions a squaring a warp for its 36 mma.
+// Measured (qmps_torch/kernel_ab.py; NVIDIA H100 80GB HBM3, 700 W): 0.128
+// ms on the 4,096 D = 4 E, 29% of its 0.0369 ms bound (the products' TF32
+// flops over 495 TFLOP/s), against 0.214 ms on the CUDA cores.  Padded to
+// 16, the tensor cores save nothing below N = 13: at N = 12 the two units
+// tie within 3% (0.126-0.130 ms), at N = 9 the CUDA cores take 0.068 ms
+// and the tensor cores 0.125-0.146.  matpow_small_kernel keeps the power
+// in shared memory (N^2 x 8 B) and the square in registers: lane l owns
+// column j = l % N and the rows r0, r0 + R, ... (r0 = l / N, R = 32 / N
+// lanes a column), so the column entry it loads is used ROWS times and the
+// row entries are broadcasts.  The norm is a __shfl_xor_sync butterfly.
 //
 // K8 (16 < N <= 64, D = 5..8): the tensor cores, which the CUDA cores'
 // 67 TFLOP/s leave far behind (495 TFLOP/s dense TF32).  One block an
@@ -200,51 +216,100 @@ __device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const 
 }
 
 // The column skew of row r: entry (r, c) of a plane lives at
-// r * LD + c + skew(r), LD a multiple of 32.  skew is 8 (r mod 4) + 4 (bit 2
-// of r), so both fragment loads hit 32 distinct banks: the A tile's rows
+// r * LD + c + skew(r) (TcShape::LD).  skew is 8 (r mod 4) + 4 (bit 2 of
+// r), so both fragment loads hit 32 distinct banks: the A tile's rows
 // g < 8 at column t < 4 and the B tile's rows t < 4 at column g < 8.  Being
 // added, not XORed, it keeps every fragment at a compile-time offset from
 // a base the thread computes once (a k-step moves the base).
 __device__ __forceinline__ int skew(int r) { return ((r & 3) << 3) | (r & 4); }
 
+// K7 on the tensor cores (T = 1): elements a block, one warp each
+constexpr int kTcElems = 4;
+
 template <int T>
 struct TcShape {
-  static constexpr int NP = 16 * T;               // padded size: T warps of 16-row strips
-  static constexpr int LD = T == 2 ? 64 : 96;     // row stride of a plane, floats (>= NP + 28)
+  static constexpr int NP = 16 * T;  // padded size: T warps of 16-row strips
+  // row stride of a plane, floats, >= NP + 28 (where skew ends): a multiple
+  // of 32 adds no bank offset a row; 48 (16 rows) adds 16 banks to every
+  // odd row, which leaves the A tile's rows g < 8 at bank offsets 0, 24,
+  // 16, 8, 4, 28, 20, 12 and the B tile's rows t < 4 at 0, 24, 16, 8: both
+  // loads still hit 32 distinct banks
+  static constexpr int LD = T == 1 ? 48 : T == 2 ? 64 : 96;
   static constexpr int PLANE = NP * LD;
-  static constexpr int THREADS = 32 * T;
-  static constexpr int BYTES = (3 * PLANE + 32) * (int)sizeof(float);  // R, I, S and the reduction
+  static constexpr int ELEMS = T == 1 ? kTcElems : 1;  // elements a block, T warps each
+  static constexpr int THREADS = 32 * T * ELEMS;
+  // planes in shared memory: R, I and (T > 1) S = R + I; at T = 1 S is
+  // summed from the R and I entries a thread has loaded
+  static constexpr int PLANES = T == 1 ? 2 : 3;
+  static constexpr int BYTES = (PLANES * PLANE * ELEMS + 32) * (int)sizeof(float);  // the planes; the reduction
 };
+
+// Entry a of plane p (R, I or S), S summed from R and I where it has no
+// plane: bitwise the value the plane would hold (written as R + I)
+template <int PLANES>
+__device__ __forceinline__ float plane_at(float* const pl[3], int p, int a) {
+  return (PLANES == 3 || p < 2) ? pl[p][a] : pl[0][a] + pl[1][a];
+}
+
+// The sum of x over an element's T warps, on each of their threads.  It
+// also orders every read of the element's planes before it against every
+// write after it: one warp an element (T = 1) needs no block barrier.
+template <int T>
+__device__ __forceinline__ float tc_sum(float x, float* red) {
+  if constexpr (T == 1) {
+    x = warp_sum(x);
+    __syncwarp();
+    return x;
+  } else {
+    return block_sum<T>(x, red);
+  }
+}
+
+template <int T>
+__device__ __forceinline__ void tc_sync() {
+  if constexpr (T == 1)
+    __syncwarp();
+  else
+    __syncthreads();
+}
 
 template <int T>
 __global__ void __launch_bounds__(TcShape<T>::THREADS)
-    matpow_tc_kernel(const float2* __restrict__ E, float2* __restrict__ out, int N, int iters) {
+    matpow_tc_kernel(const float2* __restrict__ E, float2* __restrict__ out, int B, int N, int iters) {
   using S = TcShape<T>;
-  constexpr int NP = S::NP, LD = S::LD, NT = NP / 8;
+  constexpr int NP = S::NP, LD = S::LD, NT = NP / 8, ET = 32 * T;  // ET threads an element
   extern __shared__ float sm[];
-  float* const pl[3] = {sm, sm + S::PLANE, sm + 2 * S::PLANE};  // R, I, S = R + I
-  float* const red = sm + 3 * S::PLANE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the element's slot in the block and its thread index there (constants
+  // 0 and threadIdx.x at one element a block)
+  const int slot = S::ELEMS == 1 ? 0 : threadIdx.x / ET, tid = S::ELEMS == 1 ? threadIdx.x : threadIdx.x % ET;
+  const long long elem = (long long)blockIdx.x * S::ELEMS + slot;
+  if (S::ELEMS > 1 && elem >= B) return;  // a whole warp (T = 1; at T > 1 the grid is B)
+  float* const base = sm + slot * S::PLANES * S::PLANE;
+  // R, I and S = R + I; pl[2] is the next element's at PLANES = 2, where
+  // only plane_at reads S
+  float* const pl[3] = {base, base + S::PLANE, base + 2 * S::PLANE};
+  float* const red = sm + S::PLANES * S::PLANE * S::ELEMS;
+  const int warp = tid >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const size_t off = (size_t)blockIdx.x * N * N;
+  const size_t off = (size_t)elem * N * N;
 
   float n2 = 0.f;
-  for (int k = threadIdx.x; k < NP * NP; k += S::THREADS) {
+  for (int k = tid; k < NP * NP; k += ET) {
     const int i = k / NP, j = k % NP;
     const float2 x = (i < N && j < N) ? E[off + i * N + j] : make_float2(0.f, 0.f);
     pl[0][i * LD + j + skew(i)] = x.x;
     pl[1][i * LD + j + skew(i)] = x.y;
     n2 += x.x * x.x + x.y * x.y;
   }
-  float inv = rsqrtf(fmaxf(block_sum<T>(n2, red), kNormFloor));
-  for (int k = threadIdx.x; k < NP * NP; k += S::THREADS) {  // the entries this thread wrote
+  float inv = rsqrtf(fmaxf(tc_sum<T>(n2, red), kNormFloor));
+  for (int k = tid; k < NP * NP; k += ET) {  // the entries this thread wrote
     const int a = (k / NP) * LD + k % NP + skew(k / NP);
     const float re = inv * pl[0][a], im = inv * pl[1][a];
     pl[0][a] = re;
     pl[1][a] = im;
-    pl[2][a] = re + im;
+    if (S::PLANES == 3) pl[2][a] = re + im;
   }
-  __syncthreads();
+  tc_sync<T>();
 
   // this warp's strip: rows r0 + g and r0 + g + 8 of the A fragments and
   // of the accumulators (skew(r0 + g) = skew(r0 + g + 8) = skew(g)), at
@@ -264,18 +329,17 @@ __global__ void __launch_bounds__(TcShape<T>::THREADS)
     for (int kk = 0; kk < NP / 8; ++kk) {
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
-        const float* A = pl[p] + a0 + 8 * kk;
-        const float* Bk = pl[p] + b0 + 8 * kk * LD;
+        const int A = a0 + 8 * kk, Bk = b0 + 8 * kk * LD;
         uint32_t ah[4], al[4];
-        split_tf32(A[0], ah[0], al[0]);
-        split_tf32(A[8 * LD], ah[1], al[1]);
-        split_tf32(A[4], ah[2], al[2]);
-        split_tf32(A[8 * LD + 4], ah[3], al[3]);
+        split_tf32(plane_at<S::PLANES>(pl, p, A), ah[0], al[0]);
+        split_tf32(plane_at<S::PLANES>(pl, p, A + 8 * LD), ah[1], al[1]);
+        split_tf32(plane_at<S::PLANES>(pl, p, A + 4), ah[2], al[2]);
+        split_tf32(plane_at<S::PLANES>(pl, p, A + 8 * LD + 4), ah[3], al[3]);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           uint32_t bh[2], bl[2];
-          split_tf32(Bk[8 * n], bh[0], bl[0]);
-          split_tf32(Bk[4 * LD + 4 + 8 * n], bh[1], bl[1]);
+          split_tf32(plane_at<S::PLANES>(pl, p, Bk + 8 * n), bh[0], bl[0]);
+          split_tf32(plane_at<S::PLANES>(pl, p, Bk + 4 * LD + 4 + 8 * n), bh[1], bl[1]);
           mma_tf32(acc[p][n], al, bh);  // the small terms first
           mma_tf32(acc[p][n], ah, bl);
           mma_tf32(acc[p][n], ah, bh);
@@ -293,7 +357,7 @@ __global__ void __launch_bounds__(TcShape<T>::THREADS)
         acc[1][n][e] = im;
         n2 += re * re + im * im;  // zero in the padding
       }
-    inv = rsqrtf(fmaxf(block_sum<T>(n2, red), kNormFloor));  // every warp has read the old planes
+    inv = rsqrtf(fmaxf(tc_sum<T>(n2, red), kNormFloor));  // every warp has read the old planes
     // entries (r, 2t) and (r, 2t + 1) of each n-tile, r = r0 + g (e = 0, 1)
     // and r0 + g + 8 (e = 2, 3): adjacent, 8-byte aligned (skew is even)
 #pragma unroll
@@ -305,11 +369,11 @@ __global__ void __launch_bounds__(TcShape<T>::THREADS)
         const float im0 = inv * acc[1][n][2 * h], im1 = inv * acc[1][n][2 * h + 1];
         *reinterpret_cast<float2*>(pl[0] + a) = make_float2(re0, re1);
         *reinterpret_cast<float2*>(pl[1] + a) = make_float2(im0, im1);
-        *reinterpret_cast<float2*>(pl[2] + a) = make_float2(re0 + im0, re1 + im1);
+        if (S::PLANES == 3) *reinterpret_cast<float2*>(pl[2] + a) = make_float2(re0 + im0, re1 + im1);
       }
-    __syncthreads();
+    tc_sync<T>();
   }
-  for (int k = threadIdx.x; k < N * N; k += S::THREADS) {
+  for (int k = tid; k < N * N; k += ET) {
     const int a = (k / N) * LD + k % N + skew(k / N);
     out[off + k] = make_float2(pl[0][a], pl[1][a]);
   }
@@ -323,7 +387,8 @@ int launch_tc(const float2* E, float2* out, int B, int N, int iters, cudaStream_
         cudaFuncSetAttribute(matpow_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  matpow_tc_kernel<T><<<B, TcShape<T>::THREADS, bytes, stream>>>(E, out, N, iters);
+  const int grid = (B + TcShape<T>::ELEMS - 1) / TcShape<T>::ELEMS;
+  matpow_tc_kernel<T><<<grid, TcShape<T>::THREADS, bytes, stream>>>(E, out, B, N, iters);
   return (int)cudaGetLastError();
 }
 
@@ -412,6 +477,10 @@ __global__ void __launch_bounds__(kLargeThreads)
 
 }  // namespace qmps
 
+// The smallest N that K7 squares on the tensor cores, padded to 16; below
+// it, on the CUDA cores (matpow_small_kernel).
+constexpr int kMatpowTcMinN = 13;
+
 // K7.  E, out (B, N, N) complex64, contiguous on the device, 4 < N <= 16.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
 // N it does not take).
@@ -419,6 +488,8 @@ extern "C" int qmps_matpow_small(const void* E, void* out, int B, int N, int ite
   const float2* e = (const float2*)E;
   float2* o = (float2*)out;
   cudaStream_t s = (cudaStream_t)stream;
+  if (N <= 4 || N > 16) return (int)cudaErrorInvalidValue;
+  if (N >= kMatpowTcMinN) return qmps::launch_tc<1>(e, o, B, N, iters, s);
   switch (N) {
     case 5: return qmps::launch_small<5>(e, o, B, iters, s);
     case 6: return qmps::launch_small<6>(e, o, B, iters, s);
@@ -431,8 +502,7 @@ extern "C" int qmps_matpow_small(const void* E, void* out, int B, int N, int ite
     case 13: return qmps::launch_small<13>(e, o, B, iters, s);
     case 14: return qmps::launch_small<14>(e, o, B, iters, s);
     case 15: return qmps::launch_small<15>(e, o, B, iters, s);
-    case 16: return qmps::launch_small<16>(e, o, B, iters, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return qmps::launch_small<16>(e, o, B, iters, s);
   }
 }
 

@@ -131,6 +131,22 @@ __device__ __forceinline__ void build_E_mixed_row(const c32 x[16], const c32 y[1
 // E[(i j), (k l)] = sum_s AA[s, i, k] conj(AA[s, j, l])   (energy_fused.py::_plane_E)
 __device__ __forceinline__ void build_E(const c32 aa[16], c32 e[16]) { build_E_mixed(aa, aa, e); }
 
+// Column c = (k l) of build_E, its sums in the same order (K3's quad: lane
+// c builds row c of E^T)
+__device__ __forceinline__ void build_E_col(const c32 aa[16], int c, c32 col[4]) {
+  const bool k1 = c >> 1, l1 = c & 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      c32 acc = mk(0.f, 0.f);
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        cfma(acc, k1 ? aa[s * 4 + i * 2 + 1] : aa[s * 4 + i * 2], conj(l1 ? aa[s * 4 + j * 2 + 1] : aa[s * 4 + j * 2]));
+      col[i * 2 + j] = acc;
+    }
+}
+
 // w = M x for a 4x4 row-major M
 __device__ __forceinline__ void matvec4(const c32 m[16], const c32 x[4], c32 w[4]) {
 #pragma unroll
@@ -198,6 +214,26 @@ __device__ __forceinline__ c32 quad_get(c32 x, int k) {
   return mk(__shfl_sync(0xffffffffu, x.re, k, 4), __shfl_sync(0xffffffffu, x.im, k, 4));
 }
 
+// the sum of x over the quad, on every lane (a two-round butterfly)
+__device__ __forceinline__ c32 quad_sum(c32 x) {
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1)
+    x = x + mk(__shfl_xor_sync(0xffffffffu, x.re, m), __shfl_xor_sync(0xffffffffu, x.im, m));
+  return x;
+}
+
+// row r of a 4 x 4 array, selected in registers by unrolled compares (an
+// index by the lane's r would put the array in local memory)
+__device__ __forceinline__ void select_row(const c32 x[16], int r, c32 row[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    row[c] = x[c];
+#pragma unroll
+    for (int t = 1; t < 4; ++t)
+      if (t == r) row[c] = x[t * 4 + c];
+  }
+}
+
 // the whole 4x4 matrix on every lane of the quad
 __device__ __forceinline__ void quad_gather(const c32 row[4], c32 full[16]) {
 #pragma unroll
@@ -206,16 +242,23 @@ __device__ __forceinline__ void quad_gather(const c32 row[4], c32 full[16]) {
     for (int c = 0; c < 4; ++c) full[k * 4 + c] = quad_get(row[c], k);
 }
 
-// squarings4 over the quad: m is this lane's row; row r of M^2 = sum_k
-// M[r, k] M[k, :] (k in matsq4's order), 16 multiply-adds a lane, and the
-// Frobenius norm as a two-step butterfly
+// This lane's row of the quad's M^2, m its row of M: row r of M^2 = sum_k
+// M[r, k] M[k, :] (k in matsq4's order), 16 multiply-adds a lane
+__device__ __forceinline__ void quad_square_row(const c32 m[4], c32 p[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) p[c] = mk(0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cfma(p[c], m[k], quad_get(m[c], k));
+}
+
+// squarings4 over the quad: m is this lane's row, squared by
+// quad_square_row; the Frobenius norm as a two-step butterfly
 __device__ __forceinline__ void quad_squarings4(c32 m[4], int iters) {
   for (int it = 0; it < iters; ++it) {
-    c32 p[4] = {mk(0.f, 0.f), mk(0.f, 0.f), mk(0.f, 0.f), mk(0.f, 0.f)};
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) cfma(p[c], m[k], quad_get(m[c], k));
+    c32 p[4];
+    quad_square_row(m, p);
     float n2 = norm2(p[0]) + norm2(p[1]) + norm2(p[2]) + norm2(p[3]);
     n2 += __shfl_xor_sync(0xffffffffu, n2, 1);
     n2 += __shfl_xor_sync(0xffffffffu, n2, 2);

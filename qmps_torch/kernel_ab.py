@@ -1,5 +1,5 @@
-"""Old against new: K2, K4, K5, K7 and K8 of two source trees on the same
-inputs, on one CUDA card.
+"""Old against new: K2-K8 of two source trees on the same inputs, on one
+CUDA card.
 
     python -m qmps_torch.kernel_ab --old DIR [--out FILE]
 
@@ -14,16 +14,22 @@ warm-up, on:
   and u, rounded): quench-like D = 2 inputs (left-canonical A, B the
   nearest isometry to A + 0.05 noise, W = expm(-i h(g1) 0.04), g1 in
   [0.1, 0.4]) at batches 64 (the quench's) to 65,536;
-- K2: the sweep's kind of inputs (left-canonical A, h the TFIM matrix of g
-  in [0.1, 2.0]) at batches 1,024 to 65,536 (the sweep's is 4,096);
-- this tree's K2 and K4 also with each layout forced: the source copied
-  with the batch limits of their quad layouts (``kQuadMaxB``,
-  ``kEnergyQuadMaxB``) rewritten, to 2^30 ("quad": a quad of lanes an
-  element) or to 0 ("thread": one thread an element), to measure where
-  the quad stops paying (K5 has one layout, 16 lanes an element);
-- K7 and K8: the D = 4 and D = 8 TDVP transfer matrices of 4,096 such
-  pairs (the objective's batch), E alone (4,096, this tree's path) and
-  [E, E^dag] (8,192, the earlier path);
+- K2 and K3 (on the complex128 forward's lam and v, rounded, and a
+  cotangent that varies by element): the sweep's kind of inputs
+  (left-canonical A, h the TFIM matrix of g in [0.1, 2.0]) at batches
+  1,024 to 65,536 (the sweep's is 4,096);
+- this tree's K2, K3, K4 and K7 also with each layout forced: the source
+  copied with the limits of ``LAYOUT_LIMITS`` rewritten, "quad" with the
+  new layout everywhere (K2-K4 a quad of lanes an element at every batch,
+  K7 the tensor cores at every N) and "thread" with the old one (one
+  thread an element, K7 the CUDA cores), to measure where the new layout
+  stops paying (K5 has one layout, 16 lanes an element);
+- K6: config 5's inputs (``workloads.BrickworkConfig``) at its 16,384 and
+  at bench.py's 65,536;
+- K7: random complex normal matrices scaled by 1/sqrt(N), 4,096 at each of
+  N = 9, 12, 13, 16, and K7 and K8 on the D = 4 and D = 8 TDVP transfer
+  matrices of 4,096 such pairs (the objective's batch), E alone (4,096,
+  this tree's path) and [E, E^dag] (8,192, the earlier path);
 - an empty kernel on K5's grid at 64 elements, queued and not: the floor
   of the card's and of the host's launch rate.
 Every output is checked against the complex128 plain version (lam and the
@@ -50,9 +56,11 @@ from .kernels import _lib
 from .kernels import energy_fused as tef
 from .kernels import pallas_power as tpp
 from .kernels import tdvp_fused as tdf
+from .kernels.brickwork_fast import manifold_overlap_batched
 from .mps.transfer import transfer_dense
 from .objectives.overlap import mixed_transfer_with_gate
 from .parallel.sweep import tfim_matrix
+from .workloads import BrickworkConfig
 
 ITERS = 48
 #: ~10 ms of the card's clock: longer than the host takes to queue 200 raw launches
@@ -60,8 +68,13 @@ SLEEP_CYCLES = 20_000_000
 K4_BATCHES = (64, 1024, 4096, 6144, 8192, 12288, 16384, 65536)
 K5_BATCHES = (64, 1024, 4096, 8192, 16384, 65536)
 K2_BATCHES = (1024, 4096, 6144, 8192, 12288, 16384, 65536)
-#: the batch limits of the small-batch layouts, rewritten to force a layout
-LAYOUT_LIMITS = {"tdvp_fused.cu": ("kQuadMaxB",), "energy_fused.cu": ("kEnergyQuadMaxB",)}
+K6_BATCHES = (16384, 65536)
+K7_NS = (9, 12, 13, 16)
+#: the limits of the new layouts, rewritten to force a layout: constant ->
+#: (its value with the new layout everywhere, with the old one everywhere)
+LAYOUT_LIMITS = {"tdvp_fused.cu": {"kQuadMaxB": (1 << 30, 0)},
+                 "energy_fused.cu": {"kEnergyQuadMaxB": (1 << 30, 0), "kEnergyBwdQuadMaxB": (1 << 30, 0)},
+                 "matpow.cu": {"kMatpowTcMinN": (0, 1 << 30)}}
 BIG = 4096
 
 
@@ -118,15 +131,16 @@ def _phase_err(v, ref):
     return (v - ref).abs().max().item()
 
 
-def _variant(src: Path, limit: int, name: str, root: Path) -> Path:
-    """A copy of ``src`` whose launchers take their small-batch layouts up
-    to ``limit`` elements (every constant of ``LAYOUT_LIMITS`` rewritten)."""
+def _variant(src: Path, new: bool, name: str, root: Path) -> Path:
+    """A copy of ``src`` whose launchers take the ``new`` layouts (else the
+    old ones) everywhere: every constant of ``LAYOUT_LIMITS`` rewritten."""
     dst = root / f"csrc_{name}"
     shutil.copytree(src, dst)
     for fname, consts in LAYOUT_LIMITS.items():
         cu = dst / fname
         text = cu.read_text()
-        for c in consts:
+        for c, values in consts.items():
+            limit = values[0 if new else 1]
             text, n = re.subn(rf"constexpr int {c} = [^;]+;", f"constexpr int {c} = {limit};", text)
             if n != 1:
                 raise RuntimeError(f"{c} not found in {fname}")
@@ -169,7 +183,7 @@ def main() -> int:
 
 def _run(args, dev, card, tmp: Path) -> int:
     trees = {"old": args.old / "qmps_torch" / "csrc", "new": _lib.SRC_DIR,
-             "quad": _variant(_lib.SRC_DIR, 1 << 30, "quad", tmp), "thread": _variant(_lib.SRC_DIR, 0, "thread", tmp)}
+             "quad": _variant(_lib.SRC_DIR, True, "quad", tmp), "thread": _variant(_lib.SRC_DIR, False, "thread", tmp)}
     with ThreadPoolExecutor(len(trees)) as pool:  # each build runs its own nvcc per source
         built = dict(zip(trees, pool.map(lambda d: _lib.build(d, tmp / "build")[0], trees.values())))
     libs = {k: _lib.load(p, strict=k != "old") for k, p in built.items()}
@@ -250,32 +264,73 @@ def _run(args, dev, card, tmp: Path) -> int:
 
         _timed_rows(rows, "K2", n, launch2, outs, err2, 200 if n <= 4096 else 50)
 
-    # ---- K7, K8 on the D = 4 and D = 8 TDVP matrices of 4,096 pairs ----
-    rng = np.random.default_rng(11)
-    for D, fn, name in ((4, "qmps_matpow_small", "K7"), (8, "qmps_matpow_large", "K8")):
+        lam, v = lam_p.to(torch.complex64), v_p.to(torch.complex64)
+        ct = torch.linspace(0.5, 1.5, n, device=dev)
+        bars_p = tef._bwd_plain(a.to(c128), h.to(c128), lam.to(c128), v.to(c128), ct.double())
+        outs = {k: (torch.empty(n, 2, 2, 2, dtype=torch.complex64, device=dev),
+                    torch.empty(n, 4, 4, dtype=torch.complex64, device=dev)) for k in libs}
+
+        def launch3(k):
+            abar, hbar = outs[k]
+            return lambda: libs[k].qmps_energy_bwd(a.data_ptr(), h.data_ptr(), v.data_ptr(), lam.data_ptr(),
+                                                   ct.data_ptr(), abar.data_ptr(), hbar.data_ptr(), n,
+                                                   tef.SERIES_K, stream)
+
+        def err3(o):  # hbar absolute, Abar scaled by max(1, the element's largest), as chip_smoke gates them
+            return max(((x.to(c128) - p).abs().reshape(n, -1).max(1).values
+                        / (p.abs().reshape(n, -1).max(1).values.clamp(min=1.0) if x.dim() == 4 else 1.0)).max().item()
+                       for x, p in zip(o, bars_p))
+
+        _timed_rows(rows, "K3", n, launch3, outs, err3, 200 if n <= 4096 else 50)
+
+    # ---- K6 on config 5's inputs ----
+    for n in K6_BATCHES:
+        U1, U2, U1p, U2p, Mr, Ml, W = BrickworkConfig(batch=n).inputs()
+        c2, r2 = U2[:, :, 0].contiguous(), U2p[:, :, 0].conj().resolve_conj().contiguous()
+        ref = manifold_overlap_batched(*(t.to(c128) for t in (U1, U2, U1p, U2p, Mr, Ml, W)))
+        outs = {k: torch.empty(n, dtype=torch.complex64, device=dev) for k in ("old", "new")}
+
+        def launch6(k):
+            return lambda: libs[k].qmps_brickwork_overlap(U1.data_ptr(), c2.data_ptr(), U1p.data_ptr(), r2.data_ptr(),
+                                                          Ml.data_ptr(), Mr.data_ptr(), W.data_ptr(),
+                                                          outs[k].data_ptr(), n, stream)
+
+        _timed_rows(rows, "K6", n, launch6, outs, lambda o: (o.to(c128) - ref).abs().max().item(), 200,
+                    layouts=False)
+
+    # ---- K7 on random N x N matrices, K7 and K8 on the D = 4 and D = 8 TDVP matrices of 4,096 pairs ----
+    rng, sets = np.random.default_rng(11), []
+    for D, name in ((4, "K7"), (8, "K8")):
         E = transfer_dense(*mixed_transfer_with_gate(*_pairs(rng, BIG, D, 0.03, dev))).contiguous()
-        N = E.shape[-1]
-        for tag, X in (("E", E), ("[E, E^dag]", torch.cat([E, E.mH]).resolve_conj().contiguous())):
-            n = X.shape[0]
-            X64 = X.to(torch.complex128)
-            lam_p, v_p = tpp._extract_eigpair(X64, tpp._matrix_power_plain(X64, ITERS))
-            outs = {k: torch.empty_like(X) for k in ("old", "new")}
+        sets += [(name, f"D = {D} E", E), (name, f"D = {D} [E, E^dag]", torch.cat([E, E.mH]).resolve_conj().contiguous())]
+    sets += [("K7", f"random N = {N}", torch.from_numpy(
+        (rng.standard_normal((BIG, N, N)) + 1j * rng.standard_normal((BIG, N, N))) / np.sqrt(N)).to(dev, torch.complex64))
+        for N in K7_NS]
+    for name, tag, X in sets:
+        n, N = X.shape[0], X.shape[-1]
+        X64 = X.to(torch.complex128)
+        lam_p, v_p = tpp._extract_eigpair(X64, tpp._matrix_power_plain(X64, ITERS))
+        # K7's "quad" tree squares on the tensor cores at every N, its "thread" tree on the CUDA cores
+        trees = ("old", "new", "thread", "quad") if name == "K7" and "dag" not in tag else ("old", "new")
+        outs = {k: torch.empty_like(X) for k in trees}
 
-            def launch(k):
-                f = getattr(libs[k], fn)
-                if fn == "qmps_matpow_small":
-                    return lambda: f(X.data_ptr(), outs[k].data_ptr(), n, N, ITERS, stream)
-                return lambda: f(X.data_ptr(), outs[k].data_ptr(), None, n, N, ITERS, stream)
+        def launch(k):
+            if name == "K7":
+                return lambda: libs[k].qmps_matpow_small(X.data_ptr(), outs[k].data_ptr(), n, N, ITERS, stream)
+            return lambda: libs[k].qmps_matpow_large(X.data_ptr(), outs[k].data_ptr(), None, n, N, ITERS, stream)
 
-            times = _in_turns({k: launch(k) for k in ("old", "new")}, 20 if name == "K7" else 5)
-            for k, M in outs.items():
-                lam, v = tpp._extract_eigpair(X64, M.to(torch.complex128))
-                err_lam = (lam - lam_p).abs().max().item()
-                err_v = _phase_err(v, v_p)
-                rows.append({"kernel": name, "tree": k, "batch": n, "input": tag, "ms": times[k],
-                             "lam_err": err_lam, "v_err": err_v})
-                print(f"{name} {k:3s} {tag:10s} ({n} x {N}x{N}): {times[k][0]:.5f} / {times[k][1]:.5f} ms, "
-                      f"lam err {err_lam:.3g}, v err {err_v:.3g}", flush=True)
+        reps = 20 if name == "K7" else 5
+        times = _in_turns({k: launch(k) for k in trees[:2]}, reps)
+        if len(trees) > 2:
+            times.update(_in_turns({k: launch(k) for k in trees[2:]}, reps))
+        for k, M in outs.items():
+            lam, v = tpp._extract_eigpair(X64, M.to(torch.complex128))
+            err_lam = (lam - lam_p).abs().max().item()
+            err_v = _phase_err(v, v_p)
+            rows.append({"kernel": name, "tree": k, "batch": n, "n": N, "input": tag, "ms": times[k],
+                         "lam_err": err_lam, "v_err": err_v})
+            print(f"{name} {k:6s} {tag:20s} ({n} x {N}x{N}): {times[k][0]:.5f} / {times[k][1]:.5f} ms, "
+                  f"lam err {err_lam:.3g}, v err {err_v:.3g}", flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
     print(card)

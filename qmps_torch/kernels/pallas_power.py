@@ -12,8 +12,9 @@ For a CUDA tensor (complex64) it launches hand-written kernels:
   ``qmps_tpu/kernels/pallas_power.py::_squaring_kernel`` and
   ``::_power_kernel``;
 - 4 < N <= 16 (D = 3, 4) and N > 16 (D >= 5): ``csrc/matpow.cu`` (K7, one
-  warp a matrix on the CUDA cores; K8, one block a matrix, up to N = 64
-  on the tensor cores in 3xTF32), which replace ``::_matpow_kernel_looped``
+  warp a matrix, from N = 13 on the tensor cores in 3xTF32, below on the
+  CUDA cores; K8, one block a matrix, up to N = 64 on the tensor cores),
+  which replace ``::_matpow_kernel_looped``
   and ``::_squaring_kernel_mxu``.  They return the normalised power
   E^(2^iters); ``_extract_eigpair`` reads (lam, v) off it in plain PyTorch,
   as the JAX package does in XLA, and ``_left_vector`` reads the left

@@ -361,3 +361,60 @@ def test_k2_layouts_match_plain(B):
     assert (e.double() - e_p).abs().max().item() < 2e-5
     assert (lam.to(torch.complex128) - lam_p).abs().max().item() < 1e-5
     assert (v.to(torch.complex128) - v_p).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 65536])
+def test_k3_layouts_match_plain(B):
+    """K3 at the sweep's batch (4,096) and at 65,536, each layout the
+    launcher can pick there, against the plain adjoint at complex128 on
+    K2's outputs, with a cotangent that varies by element: hbar 3e-4, Abar
+    3e-4 times max(1, the element's largest |Abar|), chip_smoke.py phase
+    4's gates; one launch."""
+    dev = require_cuda()
+    A = torch.from_numpy(left_canonical(np.random.default_rng(14), B).astype(np.complex64)).to(dev)
+    h = torch.from_numpy(tfim_h(np.linspace(0.1, 2.0, B)).astype(np.complex64)).to(dev)
+    _, lam, v = tef._fwd_cuda(A, h, 48)
+    ct = torch.linspace(0.5, 1.5, B, device=dev)
+    _lib.reset_launches()
+    Abar, hbar = tef._bwd_cuda(A, h, lam, v, ct)
+    torch.cuda.synchronize()
+    assert _lib.launches["energy_bwd"] == 1 and sum(_lib.launches.values()) == 1
+    c128 = torch.complex128
+    Abar_p, hbar_p = tef._bwd_plain(A.to(c128), h.to(c128), lam.to(c128), v.to(c128), ct.double())
+    assert (hbar.to(c128) - hbar_p).abs().max().item() < 3e-4
+    err = (Abar.to(c128) - Abar_p).abs().reshape(B, -1).max(1).values
+    scale = Abar_p.abs().reshape(B, -1).max(1).values.clamp(min=1.0)
+    assert bool((err <= 3e-4 * scale).all()), (err / scale).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [9, 12, 13, 16])
+def test_k7_tensor_cores_match_plain(N):
+    """K7 at N = 9, 12, 13 and 16, on whichever unit its launcher picks
+    there (the tensor cores in 3xTF32, padded to 16, from kMatpowTcMinN),
+    against the complex128 plain version on random matrices scaled by
+    1/sqrt(N), a batch that is a multiple of no block, one matrix zero:
+    lam to 2e-5, v and the left vector read off the same power up to phase
+    to 1e-4, the zero element zero; one launch."""
+    dev = require_cuda()
+    B = 301
+    rng = np.random.default_rng(70 + N)
+    E = (rng.standard_normal((B, N, N)) + 1j * rng.standard_normal((B, N, N))) / np.sqrt(N)
+    E[3] = 0
+    E = torch.from_numpy(E.astype(np.complex64)).to(dev)
+    _lib.reset_launches()
+    M = tpp._matrix_power_cuda(E, 48)
+    torch.cuda.synchronize()
+    assert _lib.launches["matpow_small"] == 1 and sum(_lib.launches.values()) == 1
+    E64, M64 = E.to(torch.complex128), M.to(torch.complex128)
+    M_p = tpp._matrix_power_plain(E64, 48)
+    lam, v = tpp._extract_eigpair(E64, M64)
+    lam_p, v_p = tpp._extract_eigpair(E64, M_p)
+    w, w_p = tpp._left_vector(M64), tpp._left_vector(M_p)
+    lam, v, w, lam_p, v_p, w_p = (to_np(t) for t in (lam, v, w, lam_p, v_p, w_p))
+    assert not to_np(M)[3].any() and lam[3] == 0 and not v[3].any()
+    np.testing.assert_allclose(lam, lam_p, atol=2e-5)
+    keep = np.arange(B) != 3
+    np.testing.assert_allclose(phase_aligned(v[keep], v_p[keep]), v_p[keep], atol=1e-4)
+    np.testing.assert_allclose(phase_aligned(w[keep], w_p[keep]), w_p[keep], atol=1e-4)

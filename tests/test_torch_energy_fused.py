@@ -167,3 +167,75 @@ def test_k2_quad_map_matches_plain():
     np.testing.assert_allclose(to_np(e), to_np(want[0]), atol=2e-5)
     np.testing.assert_allclose(to_np(lam), to_np(want[1]), atol=1e-5)
     np.testing.assert_allclose(to_np(v), to_np(want[2]), atol=1e-4)
+
+
+def _quad_sum(parts):
+    """The quad's two-round butterfly over four lanes' values: (p0 + p1) +
+    (p2 + p3) on every lane."""
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
+def _k3_quad(As, hs, lam, v, ct):
+    """K3's quad layout (``csrc/energy_fused.cu::energy_bwd_quad_kernel``)
+    emulated, batched over elements.  Lane r writes row t = r of hbar and
+    forms the t = r part of r2bar, which the butterfly sums; it owns x[r]
+    and row r of X, built from column r of E with the deflation, and each
+    doubling gathers x for the matvec and forms row r of X^2 as sum_k X[r, k]
+    X[k, :]; after the series it forms G's two-site slot r = (s1 s2) and
+    that slot's part of every Abar entry through the AA build (the first
+    sum at (s, t) = (s1, s2), the second at (t, s) = (s1, s2)), which the
+    butterfly sums.  -> (Abar, hbar) as K3 stores them."""
+    AA, E = tef._build(As)
+    r1, tau, r2 = tef._r_chain(v)
+    ctc, h_, AAc = ct.to(As.dtype), hs.to(As.dtype), AA.conj()
+    M = torch.einsum("bsij,bjk->bsik", AA, r2)
+    hbar = torch.stack([torch.einsum("bsik,bik->bs", M, AAc[:, r]) for r in range(4)], 1) * ctc[:, None, None]
+    r2bar = ctc[:, None, None] * _quad_sum(
+        [torch.einsum("bs,bsij,bik->bjk", h_[:, r], AA, AAc[:, r]) for r in range(4)])
+    inner = torch.einsum("bjk,bjk->b", r2bar, r1)
+    eye = torch.eye(2, dtype=As.dtype)
+    r1bar = r2bar / tau[:, None, None] - (inner / tau**2)[:, None, None] * eye
+    q = ((r1bar + r1bar.mH) / 2.0).reshape(-1, 4)
+    vw = v[:, 0] + v[:, 3]
+    alpha = (v * q).sum(-1) / vw
+    x = [q[:, r] - (alpha if r in (0, 3) else 0) for r in range(4)]
+    rows = [(E[:, :, r] - (lam / vw)[:, None] * v * (r in (0, 3))) / lam[:, None] for r in range(4)]
+    for _ in range(tef.SERIES_K):
+        x = [x[r] + sum(rows[r][:, j] * x[j] for j in range(4)) for r in range(4)]
+        rows = [sum(rows[r][:, k, None] * rows[k] for k in range(4)) for r in range(4)]
+    z = (torch.stack(x, 1) / lam[:, None]).reshape(-1, 2, 2)
+    v2 = v.reshape(-1, 2, 2)
+    parts = []
+    for r in range(4):
+        g = torch.einsum("b,bt,bjk,btik->bij", ctc, h_[:, :, r], r2, AAc)  # direct slot 1, s = r
+        g = g + torch.einsum("b,bs,bsik->bik", ctc, h_[:, r], M).conj()  # direct slot 2, t = r
+        g = g + torch.einsum("bij,bkl,bjl->bik", z, v2, AAc[:, r])  # Ebar through the ket
+        g = g + torch.einsum("bij,bkl,bik->bjl", z, v2, AA[:, r]).conj()  # and through the bra
+        s1, s2 = r >> 1, r & 1
+        o = torch.zeros_like(As)
+        o[:, s1] += torch.einsum("bpj,bcj->bpc", g, As[:, s2])
+        o[:, s2] += torch.einsum("bic,bip->bpc", g, As[:, s1])
+        parts.append(o)
+    return _quad_sum(parts), hbar
+
+
+def test_k3_quad_map_matches_plain():
+    """K3's quad map against the plain adjoint ``_bwd_plain`` on K2's
+    outputs, with a cotangent that varies by element: at complex128 to
+    1e-12; in complex64 arithmetic (the card's) against complex128 within
+    chip_smoke.py phase 4's gates: hbar 3e-4, Abar 3e-4 times max(1, the
+    element's largest |Abar|)."""
+    A, h = _batch(33, seed=5)
+    At, ht = torch.from_numpy(A), torch.from_numpy(h)
+    _, lam, v = tef._fwd_plain(At, ht, 48)
+    ct = torch.linspace(0.5, 1.5, 33, dtype=torch.float64)
+    Abar_p, hbar_p = tef._bwd_plain(At, ht, lam, v, ct)
+    for got, ref in zip(_k3_quad(At, ht, lam, v, ct), (Abar_p, hbar_p)):
+        np.testing.assert_allclose(to_np(got), to_np(ref), atol=1e-12)
+    c64 = torch.complex64
+    Abar, hbar = _k3_quad(At.to(c64), ht.to(c64), lam.to(c64), v.to(c64), ct.float())
+    assert Abar.dtype == hbar.dtype == c64
+    np.testing.assert_allclose(to_np(hbar), to_np(hbar_p), atol=3e-4)
+    err = np.abs(to_np(Abar) - to_np(Abar_p)).reshape(33, -1).max(1)
+    scale = np.maximum(1.0, np.abs(to_np(Abar_p)).reshape(33, -1).max(1))
+    assert np.all(err <= 3e-4 * scale), (err / scale).max()

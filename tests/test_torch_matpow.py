@@ -200,7 +200,7 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tf32_power(E: torch.Tensor, iters: int, split: bool) -> torch.Tensor:
-    """K8's squaring on the tensor cores, emulated: float32 planes R, I,
+    """K7's and K8's squaring on the tensor cores, emulated: float32 planes R, I,
     the three real products RR, II and SS (S = R + I) with TF32 operands
     and float32 sums, re = RR - II, im = SS - RR - II, the Frobenius norm
     after every squaring.  ``split``: 3xTF32 (x = hi + lo, hi hi + hi lo +
@@ -223,20 +223,25 @@ def _tf32_power(E: torch.Tensor, iters: int, split: bool) -> torch.Tensor:
     return torch.complex(R, I).to(E.dtype)
 
 
-def test_k8_tensor_core_numerics():
-    """Why K8 squares in 3xTF32 and never in one-pass TF32 (ROADMAP,
-    "Numerics follow the reference"): 48 random 64 x 64 matrices, 48
+@pytest.mark.parametrize("N", [9, 16, 64])
+def test_k8_tensor_core_numerics(N):
+    """Why K7 and K8 square in 3xTF32 and never in one-pass TF32 (ROADMAP,
+    "Numerics follow the reference"): 48 random N x N matrices, zero-padded
+    to a multiple of 16 as the kernels pad them (N = 9 to 16), 48
     squarings, the pair read off each emulated power against the complex128
     plain version.  3xTF32 stays within 2e-6 in lam and v (up to phase);
     one-pass TF32 misses the card's 2e-5 gate on lam (chip_smoke.py)."""
-    E = torch.from_numpy(_random(64, B=48, seed=5))
+    E = torch.from_numpy(_random(N, B=48, seed=5))
     lam_p, v_p = tpp._extract_eigpair(E, tpp._matrix_power_plain(E, 48))
+    NP = -(-N // 16) * 16
+    Ep = torch.zeros(48, NP, NP, dtype=E.dtype)
+    Ep[:, :N, :N] = E
     errs = {}
     for split in (True, False):
-        lam, v = tpp._extract_eigpair(E, _tf32_power(E, 48, split))
+        lam, v = tpp._extract_eigpair(E, _tf32_power(Ep, 48, split)[:, :N, :N])
         errs[split] = (np.abs(to_np(lam - lam_p)).max(),
                        np.abs(phase_aligned(to_np(v), to_np(v_p)) - to_np(v_p)).max())
-    print(f"3xTF32 lam {errs[True][0]:.3g} v {errs[True][1]:.3g}; one-pass TF32 lam {errs[False][0]:.3g} "
+    print(f"N = {N}: 3xTF32 lam {errs[True][0]:.3g} v {errs[True][1]:.3g}; one-pass TF32 lam {errs[False][0]:.3g} "
           f"v {errs[False][1]:.3g}")
     assert max(errs[True]) < 2e-6
     assert errs[False][0] > 2e-5
