@@ -8,8 +8,10 @@ Phases (any failure exits non-zero, and nothing is caught):
   2. build: compiles the CUDA kernels of qmps_torch/csrc with nvcc for
      sm_90a and prints ptxas's registers and spills per kernel;
   3. represent (K1): 65,536 transfer matrices of seeded left-canonical D = 2
-     tensors; the kernel (complex64) against its plain PyTorch version at
-     complex128 on the card;
+     tensors, and their first 1,024 (the layout of the represent step's
+     batch); the kernel (complex64), with and without the left vector w,
+     against its plain PyTorch version at complex128 on the card; timed
+     raw at 65,536 and 1,024 and queued at 65,536, 4,096 and 1,024;
   4. energy (K2, K3): the sweep's own first-step batch (1024 points x 4
      restarts); forward and adjoint kernels against the plain versions at
      complex128, K3 timed by raw and by queued launches; K2 and K3 also at
@@ -18,7 +20,7 @@ Phases (any failure exits non-zero, and nothing is caught):
      g, 300 steps, 4 restarts) on the card, then the represent step on the
      returned states; every returned tensor is read back in float64 against
      the exact TFIM energy, and the launch counters show that K1, K2 and K3
-     carried it;
+     carried it; K1 timed on the represent step's own 1,024 matrices;
   6. TDVP objective (K4, K5): quench-like inputs at 65,536 (a batched and a
      shared gate), forward and adjoint kernels against the plain versions
      at complex128, gated; bench.py's raw random inputs, reported only;
@@ -41,10 +43,15 @@ Phases (any failure exits non-zero, and nothing is caught):
      state of tfim(1.5), each with the exact right environment of its pair,
      W the quench window gate); every element against the plain version at
      complex128 to 1e-5; kernel, plain version and one batched torch.einsum
-     of the 13 operands timed at 65,536, the kernel also at config 5's
-     16,384, by raw and by queued launches;
+     of the 13 operands timed at 65,536, the kernel and the einsum also at
+     config 5's 16,384, by raw and by queued launches; each step of K6's
+     wrapper timed alone on the host, and config 5's call under
+     torch.profiler (device operations and busy time a call);
   9. main path, config 5: BrickworkConfig().run() (16,384 x 30), both rates,
-     the launch counter showing that K6 carried the fused row;
+     the launch counter showing that K6 carried the fused row; the fused
+     row's time a call against K6's queued time (the difference is the
+     host's: the wrapper, the launch and the workload's .abs()) and the
+     device's idle share;
  10. the brickwork family in float32 (``brickwork_family``, which
      tests/test_torch_brickwork.py also runs in float32 on the CPU): the
      Loschmidt pipeline from the ground state of phase 8 (12 steps of 120
@@ -78,8 +85,9 @@ are those of their functions, every squaring of a complex matrix counted
 in its three-product form (``csquare_flops``), K4 with one squaring chain
 for both eigenvectors; K6's those of the cheapest pairwise contraction
 order of its network (``cheapest_contraction``).  All run on the float32
-CUDA cores (67 TFLOP/s) but K7's and K8's products, which run on the
-tensor cores in 3xTF32: three TF32 products each, over 495 TFLOP/s.
+CUDA cores (67 TFLOP/s) but K7's and K8's products and K6's W product,
+which run on the tensor cores in 3xTF32: three TF32 products each, over
+495 TFLOP/s.
 Prints one JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -187,6 +195,21 @@ def cheapest_contraction(network):
     return best[full][1:]
 
 
+def k6_flops(tensor_cores=True):
+    """K6's work an element, (float32 flops, TF32 flops): the cheapest
+    contraction of its network (1,444 multiply-adds: Ml and Mr fold into
+    the outer c2 and r2 first, and W's 1,024 dominate), not the 1,808 of
+    the kernel as written.  On the tensor cores W's product over the four
+    sectors is three real 16 x 16 by 16 x 4 products (Karatsuba) in
+    3xTF32, three TF32 products each; the rest, and Karatsuba's adds (V's
+    sum before, three after: 4 x 64), on the CUDA cores."""
+    mac, mul = cheapest_contraction(K6_NETWORK)
+    if not tensor_cores:
+        return CMAC * mac + CMUL * mul, 0
+    products = 3 * 2 * 16 * 16 * 4
+    return CMAC * (mac - 1024) + CMUL * mul + 4 * 64, 3 * products
+
+
 def kernel_work(name, B, w_bytes=0):
     """(float32 flops, bytes, TF32 flops) of one launch over B elements: a
     complex multiply-add is 8 flops, a product 6; each input byte read once
@@ -195,10 +218,8 @@ def kernel_work(name, B, w_bytes=0):
     in its three-product form (``csquare_flops``); K4 one squaring chain and
     the left vector read off its power; K7's and K8's products on the
     tensor cores (``matpow_tc_flops``); K6 the cheapest contraction of its
-    network (1,444 multiply-adds: Ml and Mr fold into the outer c2 and r2
-    first, and W's 1,024 dominate), not the 2,240 multiply-adds and 384
-    products of the kernel as written."""
-    k6 = cheapest_contraction(K6_NETWORK)
+    network with W's product on the tensor cores (``k6_flops``), and U2's
+    and U2''s whole rows, which its column reads touch."""
     aa, e = 16 * (CMUL + CMAC), 64 * CMAC  # build_AA, build_E
     flops, nbytes = {
         "K1": (solve_flops(K1_ITERS), 128 + 8 + 32),
@@ -212,13 +233,14 @@ def kernel_work(name, B, w_bytes=0):
         # Q (64 each), the two AA-build adjoints (64 each), the coefficient
         "K5": (2 * aa + e + 2 * 96 * CMAC + 4 * 64 * CMAC + 60,
                64 + 64 + 32 + 32 + 8 + 4 + 64 + 64 + 128),
-        "K6": (CMAC * k6[0] + CMUL * k6[1], 128 + 128 + 32 + 32 + 32 + 32 + 8),
+        "K6": (k6_flops()[0], 4 * 128 + 32 + 32 + 8),
         # the main path's N: D = 4 and D = 8 transfer matrices, read and
         # written once, their products on the tensor cores
         "K7": (matpow_tc_flops(16, TDVP_ITERS)[1], 2 * 8 * 16 ** 2),
         "K8": (matpow_tc_flops(64, TDVP_ITERS)[1], 2 * 8 * 64 ** 2),
     }[name]
-    tc = matpow_tc_flops({"K7": 16, "K8": 64}[name], TDVP_ITERS)[0] if name in ("K7", "K8") else 0
+    tc = {"K7": lambda: matpow_tc_flops(16, TDVP_ITERS)[0], "K8": lambda: matpow_tc_flops(64, TDVP_ITERS)[0],
+          "K6": lambda: k6_flops()[1]}.get(name, lambda: 0)()
     return flops * B, nbytes * B + w_bytes, tc * B
 
 
@@ -253,11 +275,12 @@ def cuda_ms(fn, reps, warm_up=True, queued=False):
     return start.elapsed_time(end) / reps
 
 
-def device_breakdown(fn, reps):
+def device_breakdown(fn, reps, host_ops=0):
     """torch.profiler over reps calls of fn: (host ms a call, device-busy ms
-    a call, the four kernels of most device time as (name, ms a call)).
-    Busy is the union of the kernels' intervals; None where the profiler
-    recorded no kernel."""
+    a call, the four kernels of most device time as (name, ms a call),
+    device operations a call).  Busy is the union of the kernels'
+    intervals; None where the profiler recorded no kernel.  ``host_ops``:
+    print that many host operations of most self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -268,17 +291,36 @@ def device_breakdown(fn, reps):
             fn()
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3 / reps
+    if host_ops:
+        print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=host_ops))
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
-        return host, None, []
+        return host, None, [], 0.0
     busy, end, by_name = 0.0, float("-inf"), {}
     for a, b, name in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return host, busy / 1e3 / reps, top
+    return host, busy / 1e3 / reps, top, len(spans) / reps
+
+
+def host_steps(steps, reps=200):
+    """{step: host microseconds a call}: each step alone, reps times in a
+    loop, timed on the host's clock up to the last call's return (reps stay
+    under the card's launch queue, so a step that launches never waits for
+    the card), then synchronised outside the timing."""
+    out = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+    return out
 
 
 def require(ok, what):
@@ -566,26 +608,40 @@ def main() -> int:
 
     results = {}
 
-    # ---- 3. represent: K1 at 65,536 ----
+    # ---- 3. represent: K1 at 65,536 and 1,024 ----
     A1 = torch.from_numpy(left_canonical(np.random.default_rng(0), K1_BATCH)).to(dev, c64)
     E = transfer(A1).contiguous()
-    lam, v = dominant_eig_batched(E, iters=K1_ITERS)
-    lam_p, v_p = _dominant_eig_plain(E.to(c128), iters=K1_ITERS)
-    err_lam = (lam.to(c128) - lam_p).abs().max().item()
-    err_v = (phase_aligned(v.to(c128), v_p) - v_p).abs().max().item()
-    err_unit = (lam.abs() - 1).abs().max().item()
-    print(f"K1 ({K1_BATCH} x 4x4, iters {K1_ITERS}): |dlam| {err_lam:.3g} (tol 1e-5), "
-          f"|dv| up to phase {err_v:.3g} (tol 1e-4), ||lam|-1| {err_unit:.3g} (tol 1e-5)")
-    require(err_lam < 1e-5 and err_v < 1e-4 and err_unit < 1e-5, "K1 against its plain version")
-    # kernel times: raw launches into preallocated outputs, so that the
-    # wrapper's host work (~30 us) does not hide a shorter kernel; the
-    # outputs are then checked against the wrapper's
     lib, stream = _lib.lib(), torch.cuda.current_stream().cuda_stream
+    errs1 = {}
+    for n in (K1_BATCH, N_POINTS):  # one thread an element, and the represent step's layout
+        En = E[:n]
+        lam, v = dominant_eig_batched(En, iters=K1_ITERS)
+        lam_w, v_w, w = tpp._dominant_eig_cuda(En, K1_ITERS, "squaring", left=True)
+        M_p = tpp._squarings(En.to(c128), K1_ITERS)
+        lam_p, v_p = tpp._extract_eigpair(En.to(c128), M_p)
+        w_p = tpp._left_vector(M_p)
+        errs1[n] = ((lam.to(c128) - lam_p).abs().max().item(), (phase_aligned(v.to(c128), v_p) - v_p).abs().max().item(),
+                    (phase_aligned(w.to(c128), w_p) - w_p).abs().max().item(), (lam.abs() - 1).abs().max().item())
+        print(f"K1 ({n} x 4x4, iters {K1_ITERS}): |dlam| {errs1[n][0]:.3g} (tol 1e-5), |dv| up to phase "
+              f"{errs1[n][1]:.3g} (tol 1e-4), ||lam|-1| {errs1[n][3]:.3g} (tol 1e-5); the left vector: |dw| up to "
+              f"phase {errs1[n][2]:.3g} (tol 1e-4)")
+        require(errs1[n][0] < 1e-5 and errs1[n][1] < 1e-4 and errs1[n][3] < 1e-5 and errs1[n][2] < 1e-4,
+                f"K1 against its plain version ({n})")
+        require(torch.equal(lam_w, lam) and torch.equal(v_w, v), f"K1 with the left vector: the same lam and v ({n})")
+    # kernel times: raw launches into preallocated outputs, so that the
+    # wrapper's host work (~30 us) does not hide a shorter kernel, and
+    # queued behind a spin kernel (the card's time); the outputs are then
+    # checked against the wrapper's
+    lam, v = dominant_eig_batched(E, iters=K1_ITERS)
     lam_o, v_o = torch.empty_like(lam), torch.empty_like(v)
+
+    def launch1(n):
+        return lambda: lib.qmps_dominant_eig(E.data_ptr(), lam_o.data_ptr(), v_o.data_ptr(), None, n, K1_ITERS, 0,
+                                             stream)
+
     results["K1"] = dict(
-        max_abs_err=max(err_lam, err_v),
-        ms=cuda_ms(lambda: lib.qmps_dominant_eig(
-            E.data_ptr(), lam_o.data_ptr(), v_o.data_ptr(), K1_BATCH, K1_ITERS, 0, stream), 50),
+        max_abs_err=max(max(e[:3]) for e in errs1.values()),
+        ms=cuda_ms(launch1(K1_BATCH), 50),
         plain_ms=cuda_ms(lambda: _dominant_eig_plain(E, iters=K1_ITERS), 5),
         # one call after a warm-up call: eig on CUDA tensors computes on the
         # host (~30 s a call)
@@ -593,6 +649,13 @@ def main() -> int:
     )
     results["K1"].update(zip(("bound_ms", "bound_by"), bound(*kernel_work("K1", K1_BATCH))))
     require(torch.equal(lam_o, lam) and torch.equal(v_o, v), "K1 timed launches reproduce its output")
+    for n in (K1_BATCH, 4096, N_POINTS):
+        results["K1"][f"device_ms_{n}"] = cuda_ms(launch1(n), 50 if n > 4096 else 200, queued=True)
+        results["K1"][f"bound_ms_{n}"] = bound(*kernel_work("K1", n))[0]
+    results["K1"][f"ms_{N_POINTS}"] = cuda_ms(launch1(N_POINTS), 200)
+    print("K1 times: raw " + f"{results['K1']['ms']:.5f} ms at {K1_BATCH}, {results['K1'][f'ms_{N_POINTS}']:.5f} ms at "
+          f"{N_POINTS}; queued " + ", ".join(f"{results['K1'][f'device_ms_{n}']:.5f} ms at {n} (bound "
+                                             f"{results['K1'][f'bound_ms_{n}']:.5f})" for n in (K1_BATCH, 4096, N_POINTS)))
 
     # ---- 4. energy: K2, K3 on the sweep's first-step batch ----
     g64 = np.linspace(0.1, 2.0, N_POINTS) + 1e-3
@@ -715,6 +778,21 @@ def main() -> int:
             and es.is_cuda and As.is_cuda, "finite sweep output of the expected shapes, on the card")
     require(np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-9, "sweep against exact")
     require(unit < 1e-5, "represent step: |lam| = 1")
+    # K1 at the main path's own batch: the represent step's 1,024 matrices,
+    # raw and queued behind a spin kernel, checked against the main path's
+    E_main = transfer(As).contiguous()
+    lam_mo, v_mo = torch.empty_like(lam_out), torch.empty(N_POINTS, 4, dtype=c64, device=dev)
+
+    def launch1_main():
+        lib.qmps_dominant_eig(E_main.data_ptr(), lam_mo.data_ptr(), v_mo.data_ptr(), None, N_POINTS, K1_ITERS, 0,
+                              stream)
+
+    results["K1"].update(batch_main=N_POINTS, ms_main=cuda_ms(launch1_main, 200),
+                         device_ms_main=cuda_ms(launch1_main, 200, queued=True),
+                         bound_ms_main=bound(*kernel_work("K1", N_POINTS))[0])
+    require(torch.equal(lam_mo, lam_out), "K1 timed launches reproduce the main path's (1,024)")
+    print(f"K1 at the main path's batch ({N_POINTS}): raw {results['K1']['ms_main']:.5f} ms, queued "
+          f"{results['K1']['device_ms_main']:.5f} ms, bound {results['K1']['bound_ms_main']:.5f} ms")
 
     # ---- 6. TDVP objective: K4, K5 on quench-like inputs at 65,536 ----
     rng = np.random.default_rng(6)
@@ -902,10 +980,9 @@ def main() -> int:
     # kernel time: raw launches into a preallocated output on bench.py's
     # inputs, checked against the wrapper's output
     U1, U2, U1p, U2p, Mr, Ml, W = sets["bench.py's random inputs"]
-    c2, r2 = U2[:, :, 0].contiguous(), U2p[:, :, 0].conj().resolve_conj().contiguous()
     out_o = torch.empty(BW_BATCH, dtype=c64, device=dev)
     ms6 = cuda_ms(lambda: lib.qmps_brickwork_overlap(
-        U1.data_ptr(), c2.data_ptr(), U1p.data_ptr(), r2.data_ptr(), Ml.data_ptr(), Mr.data_ptr(),
+        U1.data_ptr(), U2.data_ptr(), U1p.data_ptr(), U2p.data_ptr(), Ml.data_ptr(), Mr.data_ptr(),
         W.data_ptr(), out_o.data_ptr(), BW_BATCH, stream), 50)
     require(torch.equal(out_o, k6.manifold_overlap_pallas(U1, U2, U1p, U2p, Mr, Ml, W)),
             "K6 timed launches reproduce its output")
@@ -913,27 +990,64 @@ def main() -> int:
     results["K6"] = dict(max_abs_err=err6, ms=ms6, plain_ms=cuda_ms(lambda: manifold_overlap_batched(*args6), 5),
                          library_ms=cuda_ms(lambda: overlap_einsum(*args6), 5))
     results["K6"].update(zip(("bound_ms", "bound_by"), bound(*kernel_work("K6", BW_BATCH, w_bytes=2048))))
+    # the bound of the same work with W's product on the CUDA cores
+    results["K6"]["bound_ms_cuda_cores"] = bound(k6_flops(False)[0] * BW_BATCH,
+                                                 kernel_work("K6", BW_BATCH, w_bytes=2048)[1])[0]
     print(f"K6 times ({BW_BATCH}): kernel {ms6:.5f} ms, plain {results['K6']['plain_ms']:.4f} ms, "
           f"one torch.einsum {results['K6']['library_ms']:.4f} ms, bound {results['K6']['bound_ms']:.5f} ms "
-          f"({results['K6']['bound_by']})")
+          f"({results['K6']['bound_by']}; W's product on the tensor cores; on the CUDA cores "
+          f"{results['K6']['bound_ms_cuda_cores']:.5f} ms)")
     # K6 at config 5's own batch (16,384) on its own inputs, the launches of
     # phase 9: raw, and queued behind a spin kernel (the card's time)
     U1, U2, U1p, U2p, Mr, Ml, W = sets["config 5's inputs"]
     n5 = U1.shape[0]
-    c2, r2 = U2[:, :, 0].contiguous(), U2p[:, :, 0].conj().resolve_conj().contiguous()
     out5 = torch.empty(n5, dtype=c64, device=dev)
 
     def launch6_cfg5():
-        lib.qmps_brickwork_overlap(U1.data_ptr(), c2.data_ptr(), U1p.data_ptr(), r2.data_ptr(), Ml.data_ptr(),
+        lib.qmps_brickwork_overlap(U1.data_ptr(), U2.data_ptr(), U1p.data_ptr(), U2p.data_ptr(), Ml.data_ptr(),
                                    Mr.data_ptr(), W.data_ptr(), out5.data_ptr(), n5, stream)
 
     results["K6"].update(batch_config5=n5, ms_config5=cuda_ms(launch6_cfg5, 200),
                          device_ms_config5=cuda_ms(launch6_cfg5, 200, queued=True),
-                         bound_ms_config5=bound(*kernel_work("K6", n5, w_bytes=2048))[0])
+                         bound_ms_config5=bound(*kernel_work("K6", n5, w_bytes=2048))[0],
+                         library_ms_config5=cuda_ms(lambda: overlap_einsum(U1, U2, U1p, U2p, Mr, Ml, W), 5))
     require(torch.equal(out5, k6.manifold_overlap_pallas(U1, U2, U1p, U2p, Mr, Ml, W)),
             "K6 timed launches reproduce its output (config 5's batch)")
     print(f"K6 at config 5's batch ({n5}): raw {results['K6']['ms_config5']:.5f} ms, queued "
-          f"{results['K6']['device_ms_config5']:.5f} ms, bound {results['K6']['bound_ms_config5']:.5f} ms")
+          f"{results['K6']['device_ms_config5']:.5f} ms, bound {results['K6']['bound_ms_config5']:.5f} ms, "
+          f"one torch.einsum {results['K6']['library_ms_config5']:.4f} ms")
+
+    def wrapper_steps():
+        """Each step of K6's wrapper alone, on config 5's inputs (host us a call)."""
+        args5 = (U1, U2, U1p, U2p, Mr, Ml, W)
+        shapes = ((U1, (n5, 4, 4)), (U2, (n5, 4, 4)), (U1p, (n5, 4, 4)), (U2p, (n5, 4, 4)), (Mr, (n5, 2, 2)),
+                  (Ml, (n5, 2, 2)), (W, (16, 16)))
+        return host_steps({
+            "checks (7 _lib.require)": lambda: [_lib.require(t, "t", c64, s) for t, s in shapes],
+            "operands (7 is_conj, is_contiguous)": lambda: k6._overlap_operands(*args5),
+            "torch.empty of the output": lambda: torch.empty(n5, dtype=c64, device=dev),
+            "current device test": lambda: U1.device.index == torch.cuda.current_device(),
+            "current stream query": lambda: _lib.raw_stream(U1.device.index),
+            "ctypes call (the launch)": launch6_cfg5,
+            "the workload's .abs()": lambda: out5.abs(),
+            "the whole wrapper": lambda: k6.manifold_overlap_pallas(U1, U2, U1p, U2p, Mr, Ml, W),
+            "the wrapper and .abs() (config 5's call)": lambda: k6.manifold_overlap_pallas(
+                U1, U2, U1p, U2p, Mr, Ml, W).abs(),
+        })
+
+    steps6 = wrapper_steps()
+    print("K6 wrapper, host us a call by step (config 5's inputs, 200 calls each): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in steps6.items()))
+    # the wrapper alone launches K6 and nothing else: no copy kernel
+    prof_w = device_breakdown(lambda: k6.manifold_overlap_pallas(U1, U2, U1p, U2p, Mr, Ml, W), 120)
+    print(f"K6's wrapper under torch.profiler (120 calls): {prof_w[3]:.2f} device operations a call: "
+          + "; ".join(f"{n[:50]} {t:.5f} ms" for n, t in prof_w[2]))
+    require(prof_w[3] == 1 and "brickwork_overlap" in prof_w[2][0][0], "K6's wrapper launches K6 alone")
+    cfg5_call = lambda: k6.manifold_overlap_pallas(U1, U2, U1p, U2p, Mr, Ml, W).abs()
+    prof5 = device_breakdown(cfg5_call, 120, host_ops=14)
+    print(f"config 5's call under torch.profiler (120 calls): host {prof5[0]:.4f} ms a call, device busy "
+          f"{prof5[1]:.5f} ms a call, {prof5[3]:.2f} device operations a call: "
+          + "; ".join(f"{n[:50]} {t:.5f} ms" for n, t in prof5[2]))
 
     # ---- 9. main path, config 5: the brickwork overlap throughput ----
     cfg5 = BrickworkConfig()
@@ -945,6 +1059,13 @@ def main() -> int:
           f"fused K6 {m5['overlap_evals_per_sec_fused']:.4g} evals/s (the headline), flat vs fused "
           f"|d| {m5['max_abs_diff']:.3g} (< 1e-5) on {m5['device']}; launches {launches_5}")
     require(launches_5 == counts(brickwork_overlap=4 * cfg5.iters + 2), f"launch counts of config 5 {launches_5}")
+    # the fused row's time a call (K6 and the .abs()) against the kernel's
+    # queued time: the rest is the host's, the wrapper's and the launch's
+    call5_ms = m5["seconds_fused"] * 1e3 / (4 * cfg5.iters)
+    idle5 = None if prof5[1] is None else 1 - prof5[1] / call5_ms
+    print(f"config 5 fused row: {call5_ms:.5f} ms a call of {cfg5.batch}, K6 queued "
+          f"{results['K6']['device_ms_config5']:.5f} ms, difference {call5_ms - results['K6']['device_ms_config5']:.5f} "
+          f"ms (the wrapper's host share); device idle share " + ("not measured" if idle5 is None else f"{idle5:.4f}"))
 
     # ---- 10. the brickwork family on the card (float32) ----
     _lib.reset_launches()
@@ -1081,7 +1202,7 @@ def main() -> int:
         print(f"TDVP objective D = {D}: {BIG_CALLS} value-and-gradient calls of {BIG_BATCH} in {dt12:.4f} s "
               f"({call_ms:.4f} ms a call), {big_rates[D]:.4g} objectives/s on {card}")
         # device busy from the profiler, over the unprofiled time of a call
-        host_ms, busy_ms, top = device_breakdown(value_and_grad, 5)
+        host_ms, busy_ms, top, _ = device_breakdown(value_and_grad, 5)
         big_idle[D] = None if busy_ms is None else 1 - busy_ms / call_ms
         print(f"TDVP objective D = {D} under torch.profiler (5 calls): {host_ms:.4f} ms a call, device busy "
               + ("not measured (no kernel recorded)" if busy_ms is None else
@@ -1116,6 +1237,8 @@ def main() -> int:
                       "quench_max_rate_error": float(rate_err.max()),
                       "overlap_evals_per_sec": m5["overlap_evals_per_sec"],
                       "overlap_evals_per_sec_fused": m5["overlap_evals_per_sec_fused"],
+                      "config5_fused_call_ms": call5_ms, "config5_device_idle_share": idle5,
+                      "config5_device_ops_per_call": prof5[3], "k6_wrapper_host_us": steps6,
                       **{f"brickwork_{k}": v for k, v in fam.items()},
                       **{f"tdvp_d{D}_objectives_per_second": r for D, r in big_rates.items()},
                       **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},

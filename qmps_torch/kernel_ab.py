@@ -1,4 +1,4 @@
-"""Old against new: K2-K8 of two source trees on the same inputs, on one
+"""Old against new: K1-K8 of two source trees on the same inputs, on one
 CUDA card.
 
     python -m qmps_torch.kernel_ab --old DIR [--out FILE]
@@ -18,12 +18,16 @@ warm-up, on:
   cotangent that varies by element): the sweep's kind of inputs
   (left-canonical A, h the TFIM matrix of g in [0.1, 2.0]) at batches
   1,024 to 65,536 (the sweep's is 4,096);
-- this tree's K2, K3, K4 and K7 also with each layout forced: the source
+- this tree's K1-K4 and K7 also with each layout forced: the source
   copied with the limits of ``LAYOUT_LIMITS`` rewritten, "quad" with the
-  new layout everywhere (K2-K4 a quad of lanes an element at every batch,
+  new layout everywhere (K1-K4 a quad of lanes an element at every batch,
   K7 the tensor cores at every N) and "thread" with the old one (one
   thread an element, K7 the CUDA cores), to measure where the new layout
-  stops paying (K5 has one layout, 16 lanes an element);
+  stops paying (K5 has one layout, 16 lanes an element, and K6 one, its
+  W product on the tensor cores);
+- K1 (squaring, 40 squarings, no left vector: the represent step's call):
+  the transfer matrices of seeded left-canonical D = 2 tensors at batches
+  1,024 (the sweep's represent step) to 65,536;
 - K6: config 5's inputs (``workloads.BrickworkConfig``) at its 16,384 and
   at bench.py's 65,536;
 - K7: random complex normal matrices scaled by 1/sqrt(N), 4,096 at each of
@@ -32,6 +36,9 @@ warm-up, on:
   this tree's path) and [E, E^dag] (8,192, the earlier path);
 - an empty kernel on K5's grid at 64 elements, queued and not: the floor
   of the card's and of the host's launch rate.
+Each tree is called through its own interface (``_interface``): an earlier
+tree's K1 may take no left-vector output, and its K6 U2's and conj(U2p)'s
+column 0 as (B, 4) tensors where this tree's takes U2 and U2p whole.
 Every output is checked against the complex128 plain version (lam and the
 vectors up to phase; K5's cotangents scaled by max(1, the element's
 largest)) and the largest errors are printed beside the times.  Prints one
@@ -68,13 +75,17 @@ SLEEP_CYCLES = 20_000_000
 K4_BATCHES = (64, 1024, 4096, 6144, 8192, 12288, 16384, 65536)
 K5_BATCHES = (64, 1024, 4096, 8192, 16384, 65536)
 K2_BATCHES = (1024, 4096, 6144, 8192, 12288, 16384, 65536)
+K1_BATCHES, K1_ITERS = (1024, 4096, 8192, 16384, 65536), 40
 K6_BATCHES = (16384, 65536)
 K7_NS = (9, 12, 13, 16)
 #: the limits of the new layouts, rewritten to force a layout: constant ->
 #: (its value with the new layout everywhere, with the old one everywhere)
 LAYOUT_LIMITS = {"tdvp_fused.cu": {"kQuadMaxB": (1 << 30, 0)},
                  "energy_fused.cu": {"kEnergyQuadMaxB": (1 << 30, 0), "kEnergyBwdQuadMaxB": (1 << 30, 0)},
-                 "matpow.cu": {"kMatpowTcMinN": (0, 1 << 30)}}
+                 "matpow.cu": {"kMatpowTcMinN": (0, 1 << 30)},
+                 "pallas_power.cu": {"kDominantQuadMaxB": (1 << 30, 0)}}
+#: the earlier K1 entry point's argument types (no left-vector output)
+_K1_NO_LEFT = [_lib._P, _lib._P, _lib._P, _lib._I, _lib._I, _lib._I, _lib._P]
 BIG = 4096
 
 
@@ -129,6 +140,15 @@ def _phase_err(v, ref):
     ph = (v.conj() * ref).sum(-1)
     v = v * torch.where(ph.abs() > 0, ph / ph.abs(), torch.ones_like(ph))[:, None]
     return (v - ref).abs().max().item()
+
+
+def _interface(src: Path) -> dict:
+    """Which interface a tree's K1 and K6 entry points have, read off their
+    C declarations: ``k1_left`` (a left-vector output after v) and
+    ``k6_columns`` (U2's and conj(U2p)'s column 0 passed as (B, 4) tensors)."""
+    k1 = (src / "pallas_power.cu").read_text()
+    k6 = (src / "brickwork_overlap.cu").read_text()
+    return {"k1_left": "void* v, void* w, int B" in k1, "k6_columns": "const void* c2" in k6}
 
 
 def _variant(src: Path, new: bool, name: str, root: Path) -> Path:
@@ -187,12 +207,38 @@ def _run(args, dev, card, tmp: Path) -> int:
     with ThreadPoolExecutor(len(trees)) as pool:  # each build runs its own nvcc per source
         built = dict(zip(trees, pool.map(lambda d: _lib.build(d, tmp / "build")[0], trees.values())))
     libs = {k: _lib.load(p, strict=k != "old") for k, p in built.items()}
+    abi = {k: _interface(d) for k, d in trees.items()}
+    for k in libs:
+        if not abi[k]["k1_left"]:
+            libs[k].qmps_dominant_eig.argtypes = _K1_NO_LEFT
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
 
+    # ---- K1 on the transfer matrices of left-canonical D = 2 tensors ----
+    c128 = torch.complex128
+    A1 = torch.from_numpy(_left_canonical(np.random.default_rng(0), max(K1_BATCHES), 2)).to(dev, torch.complex64)
+    E1 = transfer_dense(A1, A1).contiguous()
+    for n in K1_BATCHES:
+        E = E1[:n]
+        lam_p, v_p = tpp._dominant_eig_plain(E.to(c128), K1_ITERS)
+        outs = {k: (torch.empty(n, dtype=torch.complex64, device=dev),
+                    torch.empty(n, 4, dtype=torch.complex64, device=dev)) for k in libs}
+
+        def launch1(k):
+            lam, v = outs[k]
+            if abi[k]["k1_left"]:
+                return lambda: libs[k].qmps_dominant_eig(E.data_ptr(), lam.data_ptr(), v.data_ptr(), None, n,
+                                                         K1_ITERS, 0, stream)
+            return lambda: libs[k].qmps_dominant_eig(E.data_ptr(), lam.data_ptr(), v.data_ptr(), n, K1_ITERS, 0,
+                                                     stream)
+
+        def err1(o):
+            return max((o[0].to(c128) - lam_p).abs().max().item(), _phase_err(o[1].to(c128), v_p))
+
+        _timed_rows(rows, "K1", n, launch1, outs, err1, 200 if n <= 4096 else 50)
+
     # ---- K4, K5 ----
     A, Bt, W = _pairs(np.random.default_rng(6), max(K4_BATCHES), 2, 0.05, dev)
-    c128 = torch.complex128
     for n in sorted(set(K4_BATCHES) | set(K5_BATCHES)):
         a, b, w = A[:n].contiguous(), Bt[:n].contiguous(), W[:n].contiguous()
         a2, b2, w2 = (t.to(c128) for t in (a, b, w))
@@ -291,7 +337,8 @@ def _run(args, dev, card, tmp: Path) -> int:
         outs = {k: torch.empty(n, dtype=torch.complex64, device=dev) for k in ("old", "new")}
 
         def launch6(k):
-            return lambda: libs[k].qmps_brickwork_overlap(U1.data_ptr(), c2.data_ptr(), U1p.data_ptr(), r2.data_ptr(),
+            u2, u2p = (c2, r2) if abi[k]["k6_columns"] else (U2, U2p)
+            return lambda: libs[k].qmps_brickwork_overlap(U1.data_ptr(), u2.data_ptr(), U1p.data_ptr(), u2p.data_ptr(),
                                                           Ml.data_ptr(), Mr.data_ptr(), W.data_ptr(),
                                                           outs[k].data_ptr(), n, stream)
 

@@ -38,7 +38,7 @@ launches = {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0, "tdvp_fwd": 0, 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "qmps_dominant_eig": [_P, _P, _P, _I, _I, _I, _P],
+    "qmps_dominant_eig": [_P, _P, _P, _P, _I, _I, _I, _P],
     "qmps_energy_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
     "qmps_energy_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "qmps_tdvp_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
@@ -143,12 +143,24 @@ def lib() -> ctypes.CDLL:
 def require(t, name: str, dtype, shape: tuple) -> None:
     """Raise unless ``t`` is a CUDA tensor of ``dtype`` and ``shape`` (None
     matches any size) — what the kernels take."""
+    if t.is_cuda and t.dtype == dtype and t.shape == shape:  # the common case, in one test
+        return
     if not t.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel takes a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
     if t.dim() != len(shape) or any(s is not None and s != n for s, n in zip(shape, t.shape)):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+
+
+def raw_stream(device_index: int) -> int:
+    """The current stream of a CUDA device as the integer a C entry point
+    takes: torch's own accessor for generated kernels, ~1 us where
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+    first (~5 us on the card's host, a fifth of K6's call at config 5)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(rc: int, name: str) -> None:

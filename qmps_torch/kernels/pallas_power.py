@@ -7,8 +7,9 @@ eigenpair of a batch of N x N complex transfer matrices, N = D^2.
 by power iteration.  ``dominant_eigval_batched`` is its differentiable face.
 
 For a CUDA tensor (complex64) it launches hand-written kernels:
-- N = 4 (D = 2): ``csrc/pallas_power.cu`` (K1, one thread a matrix, the
-  whole solve in registers), which replaces
+- N = 4 (D = 2): ``csrc/pallas_power.cu`` (K1, a quad of lanes or one
+  thread a matrix by batch, the whole solve in registers, the left
+  eigenvector on request off the same power), which replaces
   ``qmps_tpu/kernels/pallas_power.py::_squaring_kernel`` and
   ``::_power_kernel``;
 - 4 < N <= 16 (D = 3, 4) and N > 16 (D >= 5): ``csrc/matpow.cu`` (K7, one
@@ -130,22 +131,27 @@ def _matrix_power_plain(E: torch.Tensor, iters: int) -> torch.Tensor:
     return _squarings(_normalised(E), iters)
 
 
-def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str):
-    """Launch K1 on a (B, 4, 4) complex64 CUDA tensor."""
+def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str, left: bool = False):
+    """Launch K1 on a (B, 4, 4) complex64 CUDA tensor -> (lam, v), and with
+    ``left`` (squaring only) also w, the left eigenvector read off the same
+    power's conjugate transpose."""
     _lib.require(E, "E", torch.complex64, (None, 4, 4))
-    E = E.contiguous()
+    if left and method != "squaring":
+        raise ValueError("K1 reads the left eigenvector off the squaring chain's power only")
+    E = E.resolve_conj().contiguous()  # a lazy E^dag is materialised first
     B = E.shape[0]
     lam = torch.empty(B, dtype=E.dtype, device=E.device)
     v = torch.empty(B, 4, dtype=E.dtype, device=E.device)
+    w = torch.empty(B, 4, dtype=E.dtype, device=E.device) if left else None
     if B:
         with torch.cuda.device(E.device):
             rc = _lib.lib().qmps_dominant_eig(
-                E.data_ptr(), lam.data_ptr(), v.data_ptr(), B, iters, _METHODS[method],
-                torch.cuda.current_stream().cuda_stream,
+                E.data_ptr(), lam.data_ptr(), v.data_ptr(), None if w is None else w.data_ptr(), B, iters,
+                _METHODS[method], torch.cuda.current_stream().cuda_stream,
             )
         _lib.check(rc, "dominant_eig")
         _lib.launches["dominant_eig"] += 1
-    return lam, v
+    return (lam, v, w) if left else (lam, v)
 
 
 def _matrix_power_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
@@ -213,16 +219,14 @@ class _DominantEigvalBatched(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return dominant_eig_batched(E, iters)[0]
         _check_batch(E)
-        if E.shape[-1] > 4:
-            # one power of E gives v and w (E^dag w = conj(lam) w)
-            M = _matrix_power(E, iters)
+        # one power of E gives v and w (E^dag w = conj(lam) w): at N = 4 K1
+        # reads both off its power in registers
+        if E.shape[-1] <= 4 and E.device.type != "cpu":
+            lam, v, w = _dominant_eig_cuda(E, iters, "squaring", left=True)
+        else:
+            M = _squarings(E, iters) if E.shape[-1] <= 4 else _matrix_power(E, iters)
             lam, v = _extract_eigpair(E, M)
             w = _left_vector(M)
-        else:
-            # K1 returns eigenpairs, not powers: one solve of [E, E^dag]
-            B = E.shape[0]
-            lam, v = dominant_eig_batched(torch.cat([E, E.mH]), iters)
-            lam, v, w = lam[:B], v[:B], v[B:]
         ctx.save_for_backward(v, w)
         ctx.e_type = E.dtype
         return lam
@@ -242,9 +246,9 @@ def dominant_eigval_batched(E: torch.Tensor, iters: int = 48) -> torch.Tensor:
     """Dominant eigenvalues of a (B, N, N) complex batch, differentiable.
 
     Forward: ``dominant_eig_batched`` (on the card K1, K7 or K8 by N); when
-    a gradient will be taken at N > 4, one power of E gives the right
-    eigenvector and, through its conjugate transpose, the left one (at N = 4
-    one K1 solve of [E, E^dag]).  Backward: the rank-1 implicit adjoint
+    a gradient will be taken, one power of E gives the right eigenvector
+    and, through its conjugate transpose, the left one (at N = 4 in one K1
+    launch on E).  Backward: the rank-1 implicit adjoint
     dlam = (w^dag dE v) / (w^dag v), no further solve.
     """
     return _DominantEigvalBatched.apply(E, iters)

@@ -1,5 +1,6 @@
 """The gen-2 brickwork stack of qmps_torch against qmps_tpu at complex128:
 circuits/brickwork (1e-12), the flat overlap and K6's CPU path (1e-12),
+K6's lane map, operands and tensor-core numerics,
 the brickwork costs with their real-parameter gradients (1e-8), the
 evolver's trajectory (1e-8), the variational environment (1e-6), the
 warm-start compile's loss and gradient (1e-8), config 5 on the CPU, and
@@ -22,7 +23,8 @@ from qmps_torch.env.variational import represent_variational_M
 from qmps_torch.ham.exact import tfim_gs_energy_f64
 from qmps_torch.ham.hamiltonian import tfim
 from qmps_torch.kernels.brickwork_fast import manifold_overlap_batched
-from qmps_torch.kernels.brickwork_pallas import manifold_overlap_pallas
+from qmps_torch.kernels.brickwork_pallas import (_lane_kets_bras, _overlap_lane_map, _overlap_operands,
+                                                  manifold_overlap_pallas)
 from qmps_torch.mps.imps import Map
 from qmps_torch.workloads import BrickworkConfig
 from qmps_tpu.algorithms import brickwork_tdvp as jbt
@@ -151,6 +153,80 @@ def test_overlap_pallas_cpu_matches_jax_flat_form():
     assert out.shape == (37,) and out.dtype == torch.complex128
     np.testing.assert_allclose(to_np(out), np.asarray(jfast.manifold_overlap_batched(*map(jnp.asarray, args))),
                                atol=1e-12)
+
+
+def test_k6_lane_map_matches_plain():
+    """K6's arithmetic in its own order and lane map (Ml and Mr folded into
+    the bra, each lane of a quad one (a, c) sector, ``_overlap_lane_map``)
+    against the plain flat form at complex128 (1e-12), and at complex64
+    against the JAX package's flat form, the reference of its Pallas
+    kernel (1e-5, bench.py:115's bound), on 300 seeded pairs."""
+    args = _overlap_inputs(300, 23)
+    lane = _overlap_lane_map(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_allclose(to_np(lane), to_np(manifold_overlap_batched(*(torch.from_numpy(a) for a in args))),
+                               atol=1e-12)
+    args64 = [a.astype(np.complex64) for a in args]
+    lane64 = _overlap_lane_map(*(torch.from_numpy(a) for a in args64))
+    assert lane64.dtype == torch.complex64
+    ref = np.asarray(jfast.manifold_overlap_batched(*map(jnp.asarray, args64)))
+    print(f"complex64 lane map against JAX's flat form: {np.abs(to_np(lane64) - ref).max():.3g}")
+    np.testing.assert_allclose(to_np(lane64), ref, atol=1e-5)
+
+
+def test_k6_operands_are_whole_u2_and_u2p():
+    """The wrapper hands K6 U2 and U2p whole (the kernel reads their column
+    0 itself), in the kernel's argument order (U1, U2, U1p, U2p, Ml, Mr,
+    W), and copies nothing that is already contiguous and unconjugated
+    (config 5's inputs: no copy kernel); a lazy conjugate (Ml = M.mH) is
+    resolved and a strided view made contiguous, with their values."""
+    U1, U2, U1p, U2p, M, _, W = (torch.from_numpy(a) for a in _overlap_inputs(6, 24))
+    Ml = M.mH.resolve_conj().contiguous()  # as config 5 passes it
+    ops = _overlap_operands(U1, U2, U1p, U2p, M, Ml, W)
+    assert all(o is t for o, t in zip(ops, (U1, U2, U1p, U2p, Ml, M, W)))
+    U2v = U2.transpose(1, 2).contiguous().transpose(1, 2)  # the same values, strided
+    lazy = M.mH
+    assert lazy.is_conj() and not U2v.is_contiguous()
+    ops = _overlap_operands(U1, U2v, U1p, U2p, M, lazy, W)
+    assert ops[1].is_contiguous() and torch.equal(ops[1], U2)
+    assert not ops[4].is_conj() and ops[4].is_contiguous() and torch.equal(ops[4], Ml)
+    assert ops[0] is U1 and ops[5] is M
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (csrc/tf32.cuh::to_tf32)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_k6_tensor_core_numerics():
+    """Why K6's W product runs in 3xTF32 on the tensor cores and never in
+    one-pass TF32: config 5's kind of inputs (4,096 seeded QR unitaries in
+    complex64, Ml = M^dag, one W), the lane map's kets and bras in
+    complex64, W k as the kernel forms it (three real products, Wr Vr,
+    Wi Vi and (Wr + Wi)(Vr + Vi), TF32 operands, float32 sums; 3xTF32 sums
+    lo hi + hi lo + hi hi), against the complex128 flat form.  3xTF32 holds
+    every overlap within 1e-5 (chip_smoke.py phase 8's gate); one-pass TF32
+    misses it."""
+    args = [torch.from_numpy(a.astype(np.complex64)) for a in _overlap_inputs(4096, 25)]
+    ref = manifold_overlap_batched(*(t.to(torch.complex128) for t in args))
+    kets, bras = _lane_kets_bras(*args[:6])
+    W = args[6]
+
+    def product(A, X, split):  # A X^T per (element, sector) column, as the mma tiles form it
+        ah, xh = _tf32(A), _tf32(X)
+        if not split:
+            return xh @ ah.T
+        return xh @ _tf32(A - ah).T + _tf32(X - xh) @ ah.T + xh @ ah.T
+
+    errs = {}
+    for split in (True, False):
+        Vr, Vi, Wr, Wi = kets.real, kets.imag, W.real, W.imag
+        P1, P2, P3 = product(Wr, Vr, split), product(Wi, Vi, split), product(Wr + Wi, Vr + Vi, split)
+        out = (bras * torch.complex(P1 - P2, P3 - P1 - P2)).sum((1, 2))
+        errs[split] = (out.to(torch.complex128) - ref).abs().max().item()
+    print(f"K6's W product: 3xTF32 {errs[True]:.3g}, one-pass TF32 {errs[False]:.3g} (gate 1e-5)")
+    assert errs[True] < 1e-6
+    assert errs[False] > 1e-5
 
 
 @pytest.mark.slow

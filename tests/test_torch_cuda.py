@@ -7,12 +7,18 @@ run them on one with
 (``--noconftest`` skips the suite's JAX set-up in conftest.py, which
 this file does not use).
 """
+import shutil
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import (left_canonical, nearest_isometry, phase_aligned, require_cuda, tfim_h, to_np,
                            transfer_matrices)
+from qmps_torch import kernel_ab
 from qmps_torch.algorithms.evolve import batched_quench_sweep
 from qmps_torch.algorithms.ground_state import find_ground_state
 from qmps_torch.ham.classical_baselines import host_energy_d2
@@ -180,12 +186,13 @@ def test_quench_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 1000])
+@pytest.mark.parametrize("B", [1, 1000, 16384])
 def test_k6_matches_plain(B):
     """K6 (complex64) against the plain version at complex128 on the same
-    inputs, at batches that are not a multiple of the 64-element block, a
-    shared W and Ml = M^dag passed as a lazy conjugate view: every element
-    to 1e-5 in the complex difference (bench.py:115's bound); one launch."""
+    inputs, at batches that are not a multiple of the 32-element block and
+    at config 5's 16,384, a shared W and Ml = M^dag passed as a lazy
+    conjugate view: every element to 1e-5 in the complex difference
+    (bench.py:115's bound); one launch."""
     dev = require_cuda()
     rng = np.random.default_rng(11)
 
@@ -418,3 +425,124 @@ def test_k7_tensor_cores_match_plain(N):
     keep = np.arange(B) != 3
     np.testing.assert_allclose(phase_aligned(v[keep], v_p[keep]), v_p[keep], atol=1e-4)
     np.testing.assert_allclose(phase_aligned(w[keep], w_p[keep]), w_p[keep], atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def forced_libs():
+    """This tree's kernels built twice more with every layout forced
+    (kernel_ab's variants): "quad" a quad of lanes an element at every
+    batch, "thread" one thread an element."""
+    require_cuda()
+    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="forced_", dir=_lib.BUILD_DIR))
+    try:
+        dirs = {k: kernel_ab._variant(_lib.SRC_DIR, k == "quad", k, root) for k in ("thread", "quad")}
+        with ThreadPoolExecutor(len(dirs)) as pool:
+            paths = dict(zip(dirs, pool.map(lambda d: _lib.build(d, root / "build")[0], dirs.values())))
+        yield {k: _lib.load(p) for k, p in paths.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _k1_plain(E, iters):
+    """The complex128 plain solve of E's matrices: lam, v and the left
+    vector read off the same power."""
+    E64 = E.cpu().to(torch.complex128)
+    M = tpp._squarings(E64, iters)
+    lam, v = tpp._extract_eigpair(E64, M)
+    return lam, v, tpp._left_vector(M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1000, 65536])
+def test_k1_layouts_match_plain(B):
+    """K1 with the left vector at a batch the launcher runs on quads of
+    lanes (1,000) and at one it runs one thread an element (65,536),
+    against the complex128 plain version: lam to 1e-5, v and w up to phase
+    to 1e-4 (chip_smoke.py phase 3's gates); one launch."""
+    dev = require_cuda()
+    E = torch.from_numpy(transfer_matrices(B, seed=15).astype(np.complex64)).to(dev)
+    _lib.reset_launches()
+    lam, v, w = tpp._dominant_eig_cuda(E, 40, "squaring", left=True)
+    torch.cuda.synchronize()
+    assert _lib.launches["dominant_eig"] == 1 and sum(_lib.launches.values()) == 1
+    lam_p, v_p, w_p = (to_np(t) for t in _k1_plain(E, 40))
+    np.testing.assert_allclose(to_np(lam), lam_p, atol=1e-5)
+    np.testing.assert_allclose(phase_aligned(to_np(v), v_p), v_p, atol=1e-4)
+    np.testing.assert_allclose(phase_aligned(to_np(w), w_p), w_p, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["thread", "quad"])
+def test_k1_forced_layouts_match_plain(layout, forced_libs):
+    """K1 forced onto each layout at the represent step's batch (1,024), with
+    the left vector, against the complex128 plain version: lam to 1e-5, v
+    and w up to phase to 1e-4."""
+    dev = require_cuda()
+    B = 1024
+    E = torch.from_numpy(transfer_matrices(B, seed=16).astype(np.complex64)).to(dev)
+    lam = torch.empty(B, dtype=torch.complex64, device=dev)
+    v, w = (torch.empty(B, 4, dtype=torch.complex64, device=dev) for _ in range(2))
+    rc = forced_libs[layout].qmps_dominant_eig(E.data_ptr(), lam.data_ptr(), v.data_ptr(), w.data_ptr(), B, 40, 0,
+                                               torch.cuda.current_stream().cuda_stream)
+    _lib.check(rc, "dominant_eig")
+    torch.cuda.synchronize()
+    lam_p, v_p, w_p = (to_np(t) for t in _k1_plain(E, 40))
+    np.testing.assert_allclose(to_np(lam), lam_p, atol=1e-5)
+    np.testing.assert_allclose(phase_aligned(to_np(v), v_p), v_p, atol=1e-4)
+    np.testing.assert_allclose(phase_aligned(to_np(w), w_p), w_p, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_eigval_n4_gradient_is_one_k1_launch():
+    """dominant_eigval_batched at N = 4 with a gradient: one K1 launch on
+    the B matrices E (lam, v and the left vector off one power), none in
+    the backward; the value against the complex128 plain version to 1e-5,
+    the gradient of sum |lam| against the plain version's to 1e-4 times
+    max(1, the element's largest |grad|)."""
+    dev = require_cuda()
+    B = 1000
+    E = torch.from_numpy(transfer_matrices(B, seed=17).astype(np.complex64)).to(dev).requires_grad_()
+    _lib.reset_launches()
+    lam = tpp.dominant_eigval_batched(E, 48)
+    lam.abs().sum().backward()
+    torch.cuda.synchronize()
+    assert _lib.launches["dominant_eig"] == 1 and sum(_lib.launches.values()) == 1
+    E64 = E.detach().cpu().to(torch.complex128).requires_grad_()
+    lam_p = tpp.dominant_eigval_batched(E64, 48)
+    lam_p.abs().sum().backward()
+    np.testing.assert_allclose(to_np(lam), to_np(lam_p), atol=1e-5)
+    err = np.abs(to_np(E.grad) - to_np(E64.grad)).reshape(B, -1).max(1)
+    scale = np.maximum(1.0, np.abs(to_np(E64.grad)).reshape(B, -1).max(1))
+    assert np.all(err <= 1e-4 * scale), (err / scale).max()
+
+
+def _k6_inputs(B, seed, dev):
+    """Seeded QR unitaries (complex64 on the card): U1, U2, U1p, U2p, M, W."""
+    rng = np.random.default_rng(seed)
+
+    def hu(*shape):
+        Q, _ = np.linalg.qr(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+        return torch.from_numpy(Q.astype(np.complex64)).to(dev)
+
+    return (*(hu(B, 4, 4) for _ in range(4)), hu(B, 2, 2), hu(16, 16))
+
+
+@pytest.mark.cuda
+def test_k6_views_and_lazy_conjugates():
+    """K6 on U2 and U2p as strided views (column 0 not where a contiguous
+    tensor keeps it), Ml = M.mH and W as lazy conjugates, and Mr a lazy
+    conjugate: every element within 1e-5 of the complex128 plain version
+    on the resolved values; one launch."""
+    dev = require_cuda()
+    B = 777
+    U1, U2, U1p, U2p, M, W0 = _k6_inputs(B, 18, dev)
+    U2v, U2pv = (u.transpose(1, 2).contiguous().transpose(1, 2) for u in (U2, U2p))
+    Mr, Ml, W = M.conj(), M.mH, W0.conj()
+    assert not U2v.is_contiguous() and Mr.is_conj() and Ml.is_conj() and W.is_conj()
+    _lib.reset_launches()
+    out = manifold_overlap_pallas(U1, U2v, U1p, U2pv, Mr, Ml, W)
+    torch.cuda.synchronize()
+    assert _lib.launches["brickwork_overlap"] == 1 and sum(_lib.launches.values()) == 1
+    ref = manifold_overlap_batched(*(t.cpu().resolve_conj().to(torch.complex128) for t in (U1, U2, U1p, U2p, Mr, Ml, W)))
+    assert np.abs(to_np(out) - to_np(ref)).max() <= 1e-5

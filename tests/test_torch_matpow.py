@@ -129,13 +129,15 @@ def test_eigval_gradient_matches_jax_and_dense():
     np.testing.assert_allclose(to_np(Et.grad), to_np(Ed.grad), atol=1e-10)
 
 
-def test_eigval_solves_once_with_both_vectors(monkeypatch):
+@pytest.mark.parametrize("N", [4, 16])
+def test_eigval_solves_once_with_both_vectors(N, monkeypatch):
     """With a gradient the forward squares E alone, once, and reads both
-    eigenvectors off that power (not a power of [E, E^dag] on 2B matrices);
-    without one, E alone too: both give the same eigenvalues."""
-    E = torch.from_numpy(_random(16, B=4, seed=4))
-    calls, power = [], tpp._matrix_power_plain
-    monkeypatch.setattr(tpp, "_matrix_power_plain", lambda x, iters: calls.append(x.shape[0]) or power(x, iters))
+    eigenvectors off that power (not a power of [E, E^dag] on 2B matrices;
+    at N = 4 as K1 does in one launch on the card); without one, E alone
+    too: both give the same eigenvalues."""
+    E = torch.from_numpy(_random(N, B=4, seed=4))
+    calls, power = [], tpp._squarings
+    monkeypatch.setattr(tpp, "_squarings", lambda x, iters: calls.append(x.shape[0]) or power(x, iters))
     with torch.no_grad():
         lam0 = tpp.dominant_eigval_batched(E)
     lam1 = tpp.dominant_eigval_batched(E.clone().requires_grad_())
@@ -143,11 +145,12 @@ def test_eigval_solves_once_with_both_vectors(monkeypatch):
     np.testing.assert_allclose(to_np(lam1), to_np(lam0), atol=1e-12)
 
 
-@pytest.mark.parametrize("N", [9, 16, 64])
+@pytest.mark.parametrize("N", [4, 9, 16, 64])
 def test_saved_left_vector_matches_jax(N):
     """The left eigenvector the forward saves, read off the power's
     conjugate transpose, against the w of JAX's forward, which squares
-    [E, E^dag] in interpret mode (float32 kernels): up to phase, 1e-5."""
+    [E, E^dag] in interpret mode (float32 kernels; at N = 4 its K1 solve of
+    the 2B matrices): up to phase, 1e-5."""
     E = _random(N, seed=20 + N).astype(np.complex64)
     lam = tpp.dominant_eigval_batched(torch.from_numpy(E).requires_grad_(), 48)
     v, w = lam.grad_fn.saved_tensors

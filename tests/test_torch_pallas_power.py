@@ -11,6 +11,7 @@ import torch
 
 from _torch_parity import phase_aligned, to_np, transfer_matrices
 from qmps_torch.kernels import _lib
+from qmps_torch.kernels import pallas_power as tpp
 from qmps_torch.kernels.pallas_power import dominant_eig_batched
 from qmps_tpu.kernels import pallas_power as jpp
 
@@ -42,6 +43,35 @@ def test_plain_matches_numpy_eig():
     ref_v = vecs[np.arange(8), :, i]
     np.testing.assert_allclose(to_np(lam), w[np.arange(8), i], atol=1e-10)
     np.testing.assert_allclose(phase_aligned(to_np(v), ref_v), ref_v, atol=1e-10)
+
+
+def test_k1_three_product_chain_in_float32():
+    """K1's squaring as its one-thread kernel forms it (csrc/pallas_power.cu::
+    matsq4_3p: float32 planes R, I, the three real products RR, II and
+    (R + I)(R + I), re = RR - II, im = SS - RR - II, the Frobenius norm
+    after each of 40 squarings), then lam, v and the left vector w read off
+    the power in complex64, against the complex128 plain version on 4,096
+    transfer matrices of seeded left-canonical D = 2 tensors:
+    chip_smoke.py phase 3's gates, |dlam| < 1e-5, |dv| and |dw| up to phase
+    < 1e-4, ||lam| - 1| < 1e-5."""
+    E = torch.from_numpy(transfer_matrices(4096, seed=0))
+    M_p = tpp._squarings(E, 40)
+    lam_p, v_p = tpp._extract_eigpair(E, M_p)
+    w_p = tpp._left_vector(M_p)
+    E32 = E.to(torch.complex64)
+    R, I = E32.real.contiguous(), E32.imag.contiguous()
+    for _ in range(40):
+        RR, II, SS = R @ R, I @ I, (R + I) @ (R + I)
+        R, I = RR - II, SS - RR - II
+        inv = torch.rsqrt(torch.clamp((R * R + I * I).sum((-2, -1), keepdim=True), min=1e-30))
+        R, I = R * inv, I * inv
+    M = torch.complex(R, I)
+    lam, v = tpp._extract_eigpair(E32, M)
+    w = tpp._left_vector(M)
+    errs = (np.abs(to_np(lam) - to_np(lam_p)).max(), np.abs(phase_aligned(to_np(v), to_np(v_p)) - to_np(v_p)).max(),
+            np.abs(phase_aligned(to_np(w), to_np(w_p)) - to_np(w_p)).max(), np.abs(np.abs(to_np(lam)) - 1).max())
+    print("three-product chain, complex64: |dlam| {:.3g}, |dv| {:.3g}, |dw| {:.3g}, ||lam|-1| {:.3g}".format(*errs))
+    assert errs[0] < 1e-5 and errs[1] < 1e-4 and errs[2] < 1e-4 and errs[3] < 1e-5
 
 
 def test_cpu_tensor_runs_plain_version():
