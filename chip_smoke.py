@@ -76,7 +76,17 @@ Phases (any failure exits non-zero, and nothing is caught):
      complex128 on the card (values 2e-5, gradients 2e-4 times max(1, the
      element's largest |grad|)), one K7 or K8 launch a value and gradient,
      on the 4,096 matrices E (the left vector is read off the same power),
-     and none in the backward, then 20 value-and-gradient calls timed.
+     and none in the backward, then 20 value-and-gradient calls timed;
+ 13. main path, evolve, one trajectory, in float32 (``evolve_pipeline``):
+     loschmidt_echo_run 1.5 -> 0.2 at tests/test_evolve.py:50-60's size
+     (20 steps to t = 0.8 of 100 adam steps, a 300-step L-BFGS ground
+     state), timed, against the exact rate; its start read back in float64
+     (host_energy_gauge_free) against the exact energy; a run killed after
+     2 of 4 steps and resumed from its checkpoint, equal to the
+     uninterrupted one; compile_state_to_ansatz to overlap > 1 - 1e-4; one
+     step of 50 inner steps under torch.profiler (device idle share, the
+     largest host operations).  The dense objective launches no hand
+     kernel, and the counters show it.
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
@@ -114,6 +124,9 @@ BIG_BATCH, BIG_CALLS = 4096, 20
 BIG_DS = {4: ("K7", "matpow_small"), 8: ("K8", "matpow_large")}  # D -> the kernel and its counter
 # the brickwork family (tests/test_brickwork.py:109-129, 171-205)
 BW_BATCH, BW_G0, BW_G1 = 65536, 1.5, 0.2
+# the single-trajectory evolve pipeline at the JAX test's own size
+# (tests/test_evolve.py:50-60): 20 steps to t = 0.8 of 100 adam steps
+ECHO_G0, ECHO_G1, ECHO_T, ECHO_STEPS, ECHO_INNER, ECHO_GS = 1.5, 0.2, 0.8, 20, 100, 300
 
 # published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
 # tensor cores, TF32 on the tensor cores (dense), device memory
@@ -496,6 +509,101 @@ def brickwork_family(p_gs):
     return {"loschmidt_max_rate_error": float(err_l), "loschmidt_seconds": t_los,
             "suN_ground_state_error": err_gs, "warm_start_overlap": float(ov_ws),
             "warm_start_max_rate_error": float(err_w), "warm_start_seconds": t_compile + t_ws}
+
+
+def evolve_pipeline(dev):
+    """Phase 13 on ``dev`` (float32 on the card, float64 on the CPU):
+    ``loschmidt_echo_run`` at ECHO_* (the ground state of tfim(1.5), 300
+    L-BFGS steps, evolved under tfim(0.2)) against the exact rate (every
+    step within 0.02, the last above 0.1); the start's float64 readout
+    (``host_energy_gauge_free`` with the device's energy as f32_ref)
+    against the exact energy, inside (-1e-9, 5e-4); an
+    MPSTimeEvolve(tfim(0.5), dt 0.05, 8 inner steps) run of 4 steps killed
+    after 2 and resumed from its checkpoint, equal to the uninterrupted
+    run; ``compile_state_to_ansatz`` of a seeded left-canonical D = 2 tensor
+    to overlap > 1 - 1e-4.  The pipeline launches no hand kernel (the
+    dense objective), and the counters must show it.  Returns (the
+    figures, the pipeline's last parameters)."""
+    import tempfile
+
+    from qmps_torch.algorithms.evolve import MPSTimeEvolve, compile_state_to_ansatz, loschmidt_echo_run
+    from qmps_torch.circuits.ansatze import shallow_full_state
+    from qmps_torch.embed.unitaries import unitary_to_tensor
+    from qmps_torch.ham.exact import loschmidt_rate, tfim_gs_energy_f64
+    from qmps_torch.ham.hamiltonian import tfim
+    from qmps_torch.kernels import _lib
+    from qmps_torch.mps.imps import iMPS
+    from qmps_torch.objectives.energy import energy_exact_env
+    from qmps_torch.utils.host_eval import host_energy_gauge_free, tfim_h64_batch
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    _lib.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    times, rates, rec = loschmidt_echo_run(ECHO_G0, ECHO_G1, ECHO_T, ECHO_STEPS, inner_steps=ECHO_INNER,
+                                           gs_steps=ECHO_GS, device=dev)
+    sync()
+    t_echo = time.perf_counter() - t0
+    launches = dict(_lib.launches)
+    n_inner = ECHO_STEPS * ECHO_INNER
+    t = np.arange(1, ECHO_STEPS + 1) * (ECHO_T / ECHO_STEPS)
+    got = rates.double().cpu().numpy()
+    err = np.abs(got - loschmidt_rate(t, ECHO_G0, ECHO_G1))
+    print(f"evolve pipeline loschmidt_echo_run({ECHO_G0} -> {ECHO_G1}, t {ECHO_T}, {ECHO_STEPS} steps x "
+          f"{ECHO_INNER} inner, ground state {ECHO_GS} L-BFGS steps; {rates.dtype} on {rates.device}): "
+          f"{t_echo:.4f} s, {n_inner / t_echo:.1f} inner steps/s with the ground state; max |rate - exact| "
+          f"{err.max():.4g} (< 0.02), last rate {got[-1]:.4f} (> 0.1); hand-kernel launches {launches}")
+    require(rates.device.type == dev.type and rec.params.shape == (ECHO_STEPS + 1, 15)
+            and np.all(np.isfinite(got)), "the pipeline's rates finite, of the expected shape, on the device")
+    require(np.abs(times.double().cpu().numpy() - t).max() < 1e-6, "the pipeline's time grid")
+    require(err.max() < 0.02 and got[-1] > 0.1, "the evolve pipeline against the exact rate")
+    require(not any(launches.values()), "the evolve pipeline launches no hand kernel")
+
+    # the start, read back in float64 with the device's own energy as reference
+    p_gs = rec.params[0]
+    with torch.no_grad():
+        e_dev = float(energy_exact_env(shallow_full_state(p_gs), torch.from_numpy(tfim(ECHO_G0).to_matrix())))
+        A_gs = unitary_to_tensor(shallow_full_state(p_gs))
+    e64 = host_energy_gauge_free(A_gs, tfim_h64_batch([ECHO_G0])[0], f32_ref=e_dev)
+    err_gs = e64 - float(tfim_gs_energy_f64(ECHO_G0))
+    print(f"evolve pipeline start: float64 readout error {err_gs:.4g} (in (-1e-9, 5e-4)); device energy "
+          f"{e_dev:.8f}, readout {e64:.10f}")
+    require(-1e-9 < err_gs < 5e-4, "the start's float64 readout against the exact energy")
+
+    # kill and resume (tests/test_checkpoint_resume.py:13-34)
+    p0 = torch.from_numpy(np.random.default_rng(0).standard_normal(15) * 0.1).to(dev, p_gs.dtype)
+
+    def stepper():
+        return MPSTimeEvolve(tfim(0.5), dt=0.05, inner_steps=8)
+
+    ref = stepper().evolve(p0, 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "traj.npz")
+        stepper().evolve(p0, 2, checkpoint_path=ckpt, checkpoint_every=1)
+        res = stepper().evolve(p0, 4, checkpoint_path=ckpt, checkpoint_every=2)
+    d_resume = max((getattr(res, f) - getattr(ref, f)).abs().max().item()
+                   for f in ("params", "loschmidt", "evs", "errors"))
+    print(f"evolve resume: 4 steps killed after 2 and resumed, largest difference from the uninterrupted "
+          f"run {d_resume:.3g} (== 0)")
+    require(d_resume == 0.0, "the resumed trajectory equals the uninterrupted one")
+
+    # compile a seeded left-canonical D = 2 tensor into the full15 gate
+    A = torch.from_numpy(left_canonical(np.random.default_rng(1), 1)[0]).to(dev, rec.params.dtype.to_complex())
+    sync()
+    t0 = time.perf_counter()
+    p = compile_state_to_ansatz(A)
+    sync()
+    t_compile = time.perf_counter() - t0
+    with torch.no_grad():
+        B = unitary_to_tensor(shallow_full_state(p))
+        ov = float(iMPS([B.cpu().to(torch.complex128)]).overlap(iMPS([A.cpu().to(torch.complex128)])))
+    print(f"compile_state_to_ansatz (800 adam steps, {p.dtype}, {t_compile:.3f} s): overlap {ov:.9f} "
+          f"(> 1 - 1e-4)")
+    require(p.device.type == dev.type and ov > 1 - 1e-4, "the compiled state's overlap")
+    return {"evolve_seconds": t_echo, "evolve_inner_steps_per_second": n_inner / t_echo,
+            "evolve_max_rate_error": float(err.max()), "evolve_last_rate": float(got[-1]),
+            "evolve_gs_energy_error_f64": err_gs, "evolve_resume_max_difference": d_resume,
+            "evolve_compile_overlap": ov}, rec.params[-1]
 
 
 def big_tdvp_inputs(rng, D, dev):
@@ -1209,6 +1317,29 @@ def main() -> int:
                  f"{busy_ms:.4f} ms, idle share {big_idle[D]:.4f} of the unprofiled call; largest: "
                  + "; ".join(f"{n[:60]} {t:.4f} ms" for n, t in top)))
 
+    # ---- 13. main path, evolve: the single-trajectory pipeline (float32) ----
+    t13 = time.perf_counter()
+    evo, p_last = evolve_pipeline(dev)
+    # where an inner step's time goes: one MPSTimeEvolve step of 50 inner
+    # steps from the pipeline's last state, unprofiled, then profiled
+    from qmps_torch.algorithms.evolve import MPSTimeEvolve
+
+    probe = MPSTimeEvolve(tfim(ECHO_G1), ECHO_T / ECHO_STEPS, inner_steps=50)
+    probe.step(p_last)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe.step(p_last)
+    torch.cuda.synchronize()
+    step50_ms = (time.perf_counter() - t0) * 1e3
+    host13, busy13, top13, ops13 = device_breakdown(lambda: probe.step(p_last), 1, host_ops=12)
+    evo["evolve_device_idle_share"] = None if busy13 is None else 1 - busy13 / step50_ms
+    print(f"evolve inner steps under torch.profiler (one step of 50): {step50_ms / 50:.4f} ms an inner step "
+          f"unprofiled, {host13 / 50:.4f} profiled; {ops13 / 50:.1f} device operations an inner step; device busy "
+          + ("not measured (no kernel recorded)" if busy13 is None else
+             f"{busy13 / 50:.4f} ms, idle share {evo['evolve_device_idle_share']:.4f}; largest: "
+             + "; ".join(f"{n[:60]} {t / 50:.5f} ms" for n, t in top13)) + f" (on {card})")
+    print(f"phase 13 in {time.perf_counter() - t13:.1f} s")
+
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
         "K2": ("energy_fwd", "qmps_torch/csrc/energy_fused.cu", "qmps_tpu/kernels/energy_fused.py:271"),
@@ -1243,7 +1374,7 @@ def main() -> int:
                       **{f"tdvp_d{D}_objectives_per_second": r for D, r in big_rates.items()},
                       **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},
                       **{f"tdvp_d{D}_value_error": e[0] for D, e in big_errs.items()},
-                      **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}}))
+                      **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}, **evo}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,32 +4,186 @@ Per time step, the candidate state's parameters maximize the per-site
 overlap density with W|psi(t)> (qmps/new_time_evolve.py:252-302), by an
 adam loop warm-started from the current parameters.
 
-Ported: ``batched_quench_sweep``, a family of quench trajectories in
-lockstep, with both engines.  ``MPSTimeEvolve`` (with checkpoint and
-resume), ``compile_state_to_ansatz``, ``loschmidt_echo_run`` and the noise
-sweeps wait (ROADMAP.md, section 1 item 1).  The JAX package's ``chunk``, ``mesh``
-and compiled-program cache are TPU compile workarounds and have no
-counterpart here.
+- ``MPSTimeEvolve``: one trajectory, with an atomic checkpoint every
+  ``checkpoint_every`` steps and resume from it, a per-step record of
+  Pauli expectation values and the overlap with the initial state, and an
+  optional ``ConvergenceRecord`` log; the dense ``tdvp_objective``.
+- ``compile_state_to_ansatz``: the ansatz parameters of a given state.
+- ``loschmidt_echo_run``: the reference's single-trajectory quench
+  pipeline (scripts/loschmidt.py:335-382).
+- ``batched_quench_sweep``: a family of quench trajectories in lockstep,
+  with both engines.
+
+The noisy steppers and sweeps wait for objectives/noise (ROADMAP.md, "The
+rest").  The JAX package's ``chunk``, ``mesh`` and compiled-step cache
+are TPU compile workarounds and have no counterpart here.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+from typing import Callable
+
+import numpy as np
+import scipy.linalg
 import torch
 
 from ..circuits import ansatze
 from ..config import default_dtypes, resolve_device
+from ..core.gates import complex_type
+from ..core.paulis import X, Y, Z
 from ..embed.unitaries import unitary_to_tensor
-from ..ham.hamiltonian import tfim
+from ..ham.hamiltonian import as_host_matrix, tfim
+from ..mps.imps import iMPS
 from ..mps.transfer import right_fixed_point
 from ..objectives.overlap import tdvp_objective, tdvp_objective_pallas
 from ..optim.minimize import adam_steps
 from ..parallel.sweep import tfim_matrix
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .ground_state import find_ground_state
+
+
+@dataclasses.dataclass
+class EvolveRecord:
+    params: torch.Tensor  # (steps + 1, n_params)
+    loschmidt: torch.Tensor  # (steps,) |<psi_0|psi_t>|^2 per site
+    evs: torch.Tensor  # (steps, len(record_ops)) expectation values
+    errors: torch.Tensor  # (steps,) the objective at each step's returned params
 
 
 def _warm_started_minimize(loss, p: torch.Tensor, inner_steps: int, lr: float) -> torch.Tensor:
     """``inner_steps`` constant-rate adam steps on ``loss`` from p, with a
     fresh optimizer state (re-initialised at every outer step)."""
     return adam_steps(loss, p, inner_steps, lr)[0]
+
+
+class MPSTimeEvolve:
+    """TDVP stepper over a parametrized circuit-MPS manifold.
+
+    ``gate``: params -> state unitary (default the 15-param SU(4) circuit
+    "full15", qmps/new_time_evolve.py:187-188).  W = expm(-i h
+    trotter_factor dt) on the host in complex128: the reference's 2-site
+    gate advances the 2-site unit cell by dt (scripts/loschmidt.py:341).
+    ``device``: where ``evolve`` runs; None follows ``config.resolve_device``
+    (the parameters' device for a tensor, else the card).  The precision
+    is the parameters': float32 runs the complex64 objective.
+    """
+
+    def __init__(self, H, dt: float, gate: Callable | None = None, inner_steps: int = 80,
+                 lr: float = 3e-2, trotter_factor: float = 2.0, device=None):
+        self.h = as_host_matrix(H)
+        self.dt = dt
+        self.W = scipy.linalg.expm(-1j * np.asarray(self.h) * trotter_factor * dt)
+        self.gate = ansatze.shallow_full_state if gate is None else gate
+        self.inner_steps = inner_steps
+        self.lr = lr
+        self.device = device
+
+    def tensor(self, params: torch.Tensor) -> torch.Tensor:
+        return unitary_to_tensor(self.gate(params))
+
+    def step(self, params: torch.Tensor):
+        """One TDVP step from ``params``: ``inner_steps`` adam steps of the
+        objective at a constant rate, from a fresh optimizer state.
+        Returns (new params, the objective AT the new params): the last
+        pre-update value would belong to the penultimate iterate."""
+        W = torch.from_numpy(self.W).to(params.device, complex_type(params))
+        with torch.no_grad():
+            A = self.tensor(params)
+
+        def loss(p):
+            return tdvp_objective(A, self.tensor(p), W)
+
+        p = _warm_started_minimize(loss, params, self.inner_steps, self.lr)
+        with torch.no_grad():
+            return p, loss(p)
+
+    def evolve(self, params0, n_steps: int, record_ops=(X, Y, Z), checkpoint_path: str | None = None,
+               checkpoint_every: int = 25, log=None) -> EvolveRecord:
+        """Run ``n_steps`` TDVP steps from ``params0``.
+
+        ``checkpoint_path``: the whole restart state (trajectory,
+        observables, step counter) is saved there atomically every
+        ``checkpoint_every`` steps and at the end, and a later call with
+        the same path resumes from the last saved step (the reference could
+        only np.save trajectories, qmps/new_time_evolve.py:294).  ``log``:
+        a ``utils.logging.ConvergenceRecord`` that collects each step's
+        objective with its wall-clock time.  Step first, then record:
+        loschmidt[k] is the state at t = (k + 1) dt."""
+        device = resolve_device(self.device, params0)
+        _, rdtype = default_dtypes(device, like=params0)
+        ops = list(record_ops)
+        ps = [torch.as_tensor(params0).to(device, rdtype)]
+        les, evss, errs = [], [], []
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            state = load_checkpoint(checkpoint_path)
+            ps, les, evss, errs = (list(state[k].to(device, rdtype)) for k in ("ps", "les", "evss", "errs"))
+        params = ps[-1]
+        with torch.no_grad():
+            psi0 = iMPS([self.tensor(ps[0])])
+
+        def stacked(xs, empty_shape):
+            return torch.stack(xs).cpu().numpy() if xs else np.zeros(empty_shape)
+
+        def save(step_done):
+            save_checkpoint(checkpoint_path, {
+                "step": np.int64(step_done), "ps": stacked(ps, (0,)), "les": stacked(les, (0,)),
+                "evss": stacked(evss, (0, len(ops))), "errs": stacked(errs, (0,)),
+            })
+
+        for k in range(len(les), n_steps):
+            params, err = self.step(params)
+            ps.append(params)
+            errs.append(err)
+            with torch.no_grad():
+                psi_t = iMPS([self.tensor(params)])
+                evss.append(psi_t.Es(ops))
+                les.append(psi_t.overlap(psi0))
+            if log is not None:
+                log.append(float(err))
+            if checkpoint_path and ((k + 1) % checkpoint_every == 0 or k + 1 == n_steps):
+                save(k + 1)
+        return EvolveRecord(params=torch.stack(ps), loschmidt=torch.stack(les), evs=torch.stack(evss),
+                            errors=torch.stack(errs))
+
+
+def compile_state_to_ansatz(A, gate: Callable | None = None, n_params: int = 15, steps: int = 800,
+                            lr: float = 5e-2, generator: torch.Generator | None = None, device=None):
+    """Ansatz parameters whose state overlaps a target uMPS tensor A
+    (d, D, D) most (the reference's compilation of the initial state into
+    the gate, scripts/loschmidt.py:356-359, with gradients): ``steps`` adam
+    steps of the TDVP objective at W = I from normals * 0.1 drawn from
+    ``generator`` (a CPU generator, seed 0 if None).  ``device`` follows
+    ``config.resolve_device``; the precision is A's for a tensor, else the
+    device's."""
+    gate = ansatze.shallow_full_state if gate is None else gate
+    device = resolve_device(device, A)
+    cdtype, rdtype = default_dtypes(device, like=A)
+    A = torch.as_tensor(A).to(device, cdtype)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    p0 = torch.randn(n_params, generator=generator, dtype=torch.float64).to(device, rdtype) * 0.1
+    eye = torch.eye(4, dtype=cdtype, device=device)
+    return adam_steps(lambda p: tdvp_objective(A, unitary_to_tensor(gate(p)), eye), p0, steps, lr)[0]
+
+
+def loschmidt_echo_run(g0: float, g1: float, t_max: float, n_steps: int, gate: Callable | None = None,
+                       inner_steps: int = 120, gs_steps: int = 400, generator: torch.Generator | None = None,
+                       device=None):
+    """The full quench pipeline (scripts/loschmidt.py:335-382): the ground
+    state of tfim(g0) (L-BFGS, ``gs_steps``, the full15 ansatz, initial
+    guess from ``generator``), evolved under tfim(g1) by ``MPSTimeEvolve``
+    for ``n_steps`` steps of dt = t_max / n_steps.  ``device`` follows
+    ``config.resolve_device`` (the card unless asked): float32 on CUDA,
+    float64 on the CPU.  Returns (times, the rate -log(overlap density),
+    EvolveRecord)."""
+    device = resolve_device(device)
+    gs = find_ground_state(tfim(g0), D=2, ansatz="full15", method="lbfgs", steps=gs_steps,
+                           generator=generator, device=device)
+    dt = t_max / n_steps
+    rec = MPSTimeEvolve(tfim(g1), dt, gate=gate, inner_steps=inner_steps, device=device).evolve(gs.params, n_steps)
+    times = torch.arange(1, n_steps + 1, dtype=rec.loschmidt.dtype, device=device) * dt
+    return times, -torch.log(rec.loschmidt), rec
 
 
 def batched_quench_sweep(

@@ -1,11 +1,13 @@
 """Variational ground-state search (counterpart of
 ``qmps_tpu.algorithms.ground_state``).
 
-Ported: ``find_ground_state`` for the "suN" (any D), "su4" and "full15"
-(D = 2) ansatze with the adam and L-BFGS optimizers; the energy is
-``energy_exact_env``.  The shallow circuit ansatze (ROADMAP.md item 9),
-the rotosolve and scipy methods (item 19) and the reference-named
-optimizer classes wait.
+Ported: ``find_ground_state`` for every state ansatz of
+``circuits.ansatze.STATE_ANSATZE`` ("suN" at any D, "su4" and "full15" at
+D = 2, and the shallow circuits "qaoa", "cnot", "cnot3",
+"cnot_nonuniform" and "exact_after_4") with the adam and L-BFGS
+optimizers; the energy is ``energy_exact_env``.  The rotosolve and scipy
+methods and the reference-named optimizer classes wait (ROADMAP.md, "The
+rest").
 """
 from __future__ import annotations
 
@@ -31,24 +33,14 @@ class GroundStateResult:
     A: torch.Tensor
 
 
-#: the JAX package's shallow circuit ansatze, not ported yet (item 9)
-_UNPORTED = ("qaoa", "cnot", "cnot3", "cnot_nonuniform", "exact_after_4")
-
-
 def _ansatz_builder(ansatz: str, D: int):
     """params -> (..., 2D, 2D) state unitary (ground_state.py:38-45)."""
-    if ansatz == "suN":
-        return lambda p: ansatze.full_state_suN(p, D)
-    if ansatz in ("full15", "su4"):
-        if D != 2:
-            raise ValueError(f"the {ansatz!r} ansatz is a D = 2 state gate, got D = {D}")
-        return ansatze.shallow_full_state if ansatz == "full15" else ansatze.full_state_su4
-    if ansatz in _UNPORTED:
-        raise NotImplementedError(
-            f"ansatz {ansatz!r} is not ported: the shallow circuit ansatze wait "
-            "(ROADMAP.md, item 9); use 'suN', 'su4' or 'full15'"
-        )
-    raise ValueError(f"unknown ansatz {ansatz!r}")
+    if ansatz in ("full15", "su4") and D != 2:
+        raise ValueError(f"the {ansatz!r} ansatz is a D = 2 state gate, got D = {D}")
+    if ansatz not in ansatze.STATE_ANSATZE:
+        raise ValueError(f"unknown ansatz {ansatz!r}")
+    unitary = ansatze.STATE_ANSATZE[ansatz]
+    return lambda p: unitary(D, p)
 
 
 def n_params(ansatz: str, D: int, depth: int = 2) -> int:
@@ -88,7 +80,7 @@ def find_ground_state(
     if method not in ("adam", "lbfgs"):
         raise NotImplementedError(
             f"method {method!r} is not ported: rotosolve and the scipy bridge wait "
-            "(ROADMAP.md, item 19); use 'adam' or 'lbfgs'"
+            "(ROADMAP.md, 'The rest'); use 'adam' or 'lbfgs'"
         )
     device = resolve_device(device, initial_guess)
     cdtype, rdtype = default_dtypes(device, initial_guess)

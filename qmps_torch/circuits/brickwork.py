@@ -14,9 +14,6 @@ result), the port takes that entry of the operand before contracting:
 operands are listed (``_contract``), so the order is written down once and
 every machine computes the same sequence whatever einsum path planner it
 has; the order keeps each intermediate at 64 entries or fewer.
-
-Ported: everything but ``bricks_from_tensor``, which needs
-``embed.environment_to_unitary`` (ROADMAP.md, item 3).
 """
 from __future__ import annotations
 
@@ -26,6 +23,7 @@ import torch
 
 from ..core import lie
 from ..core.linalg import _chirp
+from ..embed.unitaries import environment_to_unitary
 from ..mps.transfer import dominant_eigpair_cgauge
 from .ir import apply_unitary
 
@@ -118,6 +116,25 @@ def bricks_to_tensor_right(U1: torch.Tensor, U2: torch.Tensor) -> torch.Tensor:
     return A.reshape(A.shape[:-4] + (2, 4, 2)).transpose(-1, -3)
 
 
+def bricks_from_tensor(A: torch.Tensor):
+    """QR and polar split of one (2, 2, 2) MPS tensor into a brick pair
+    (U1, U2), the reference's ``Us_from_A``
+    (new_tdvp/loschmidt_classical.py:93-141), differentiable: SVD polar
+    and a QR first-column completion (``environment_to_unitary``) where
+    the reference used scipy's polar and a null space.
+
+    An approximate initializer, as in the reference: the blocked 1-site
+    state does not lie in the left-leaning manifold in general (the polar
+    step projects).  ``algorithms.brickwork_tdvp.compile_tensor_to_bricks``
+    polishes it with gradients."""
+    Bm = torch.einsum("sij,tjk->iskt", A, A).reshape(2, 8)  # rows: the left bond
+    C, Dm = torch.linalg.qr(Bm)  # C (2, 2) unitary, Dm (2, 8)
+    u, s, vh = torch.linalg.svd(Dm.reshape(2, 2, 2, 2).permute(1, 2, 0, 3).reshape(4, 4))
+    U1 = u @ vh  # the polar unitary factor
+    H = (vh.mH * s.to(vh.dtype)) @ vh  # the hermitian factor, absorbed into the column
+    return U1, environment_to_unitary(torch.einsum("abcd,dc->ab", H.reshape(2, 2, 2, 2), C))
+
+
 def right_env_map(U1, U2, U1d, U2d, M) -> torch.Tensor:
     """One application of the brickwork mixed transfer map to a 2x2 matrix M
     (RightEnvironment.circuit, ClassicalTDVPStripped.py:355-377)."""
@@ -157,7 +174,7 @@ def _unit_eigpair(M: torch.Tensor):
     the eigenvector's phase carries 2^40 d(arg eta), which cancels in any
     phase-invariant cost only in exact arithmetic, so its float64 gradient
     of ``evolve_cost_exact_env`` carries amplified rounding (ROADMAP.md,
-    section 3)."""
+    "Faults in the port against the reference")."""
     eta, v = dominant_eigpair_cgauge(M, _chirp(4, M.dtype, M.device))
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     return eta, v.reshape(v.shape[:-1] + (2, 2))

@@ -19,3 +19,9 @@ PAULI = {"I": I2, "X": X, "Y": Y, "Z": Z}
 def kron_all(ops: Sequence[torch.Tensor]) -> torch.Tensor:
     """Tensor product of a list of matrices (qubit 0 first)."""
     return reduce(torch.kron, ops)
+
+
+def embed(op: torch.Tensor, loc: int, n_qubits: int) -> torch.Tensor:
+    """I^loc (x) op (x) I^rest on n_qubits qubits (op may span several)."""
+    k = int(op.shape[0]).bit_length() - 1
+    return kron_all([I2] * loc + [op] + [I2] * (n_qubits - loc - k))

@@ -1,11 +1,30 @@
-"""Unitary -> MPS tensor (counterpart of ``qmps_tpu.embed.unitaries``).
+"""Tensor <-> unitary and environment <-> unitary embeddings (counterpart of
+``qmps_tpu.embed.unitaries``):
 
-Ported: ``unitary_to_tensor``.  ``tensor_to_unitary`` and the environment
-embeddings need ``unitary_completion`` and wait (ROADMAP.md, item 3).
+- ``tensor_to_unitary`` / ``unitary_to_tensor``   (qmps/tools.py:123-154)
+- ``environment_to_unitary`` / ``_from_unitary``  (qmps/tools.py:97-120)
+- ``put_env_on_left_site`` / ``_right_site`` and their inverses
+  (qmps/time_evolve_tools.py:38-74)
+
+A left-canonical MPS tensor A (d, D, D) embeds as the isometry
+iso[(i, s), j] = A[s, i, j], completed to a unitary whose first D columns
+are iso (``core.linalg.unitary_completion``, the same completion as the JAX
+package's).  ``unitary_to_tensor`` is batched over leading dimensions; the
+others take one tensor, vector or matrix.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.gates import SWAP
+from ..core.linalg import row_completion, unitary_completion
+
+
+def tensor_to_unitary(A: torch.Tensor) -> torch.Tensor:
+    """Left-canonical (d, D, D) tensor -> (d D, d D) unitary whose first D
+    columns are the isometry (qmps/tools.py:123-148)."""
+    d, D, _ = A.shape
+    return unitary_completion(A.transpose(0, 1).reshape(D * d, D))
 
 
 def unitary_to_tensor(U: torch.Tensor) -> torch.Tensor:
@@ -14,3 +33,53 @@ def unitary_to_tensor(U: torch.Tensor) -> torch.Tensor:
     (qmps/tools.py:151-154)."""
     D = U.shape[-1] // 2
     return U[..., :, :D].reshape(U.shape[:-2] + (D, 2, D)).transpose(-3, -2)
+
+
+def environment_to_unitary(v: torch.Tensor) -> torch.Tensor:
+    """Vector -> unitary whose first column is v/|v| (qmps/tools.py:97-108):
+    V|0..0> prepares the environment's purification."""
+    v = v.reshape(-1)
+    return unitary_completion((v / torch.linalg.vector_norm(v))[:, None])
+
+
+def environment_from_unitary(u: torch.Tensor) -> torch.Tensor:
+    """The first column of u as a (2, 2) matrix C with rho = C C^dag
+    (qmps/tools.py:111-120)."""
+    return u[:, 0].reshape(2, 2)
+
+
+def _rows_over_norm(r0, r1, q: torch.Tensor):
+    n = torch.linalg.vector_norm(q.reshape(-1))
+    return torch.stack([torch.stack(r0), torch.stack(r1)]) / n, n
+
+
+def put_env_on_left_site(q: torch.Tensor, ret_n: bool = False):
+    """Embed a 2x2 matrix q as a 2-qubit unitary from which the Bell-pair
+    circuit reads q_ij / |q|_F (qmps/time_evolve_tools.py:38-53).  Row 0,
+    the only row the post-selected circuits address, is the reference's;
+    the other rows are a differentiable QR completion."""
+    a, b, c, d = q.T.reshape(-1)
+    guess, n = _rows_over_norm([a, c.conj(), b, d.conj()], [c, -a.conj(), d, -b.conj()], q)
+    A = SWAP.to(q.device, q.dtype) @ row_completion(guess)
+    return (A, n) if ret_n else A
+
+
+def get_env_off_left_site(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``put_env_on_left_site`` (qmps/time_evolve_tools.py:55-57):
+    the entries A[(i, 0), (j, 0)], transposed."""
+    return A.reshape(2, 2, 2, 2)[:, 0, :, 0].T
+
+
+def put_env_on_right_site(q: torch.Tensor, ret_n: bool = False):
+    """The mirror embedding, for the left environment
+    (qmps/time_evolve_tools.py:59-70)."""
+    a, b, c, d = q.reshape(-1)
+    guess, n = _rows_over_norm([a, b, d.conj(), -c.conj()], [c, d, -b.conj(), a.conj()], q)
+    A = row_completion(guess)
+    return (A, n) if ret_n else A
+
+
+def get_env_off_right_site(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``put_env_on_right_site`` (qmps/time_evolve_tools.py:72-74):
+    the entries A[(0, i), (0, j)]."""
+    return A.reshape(2, 2, 2, 2)[0, :, 0, :]

@@ -2,7 +2,7 @@
 
 Ported: the gen-2 M-ansatz matching ``represent_variational_M``
 (ClassicalTDVPStripped.py:599-655), the brickwork Represent.  The gen-1
-tomography and trace-distance solvers wait (ROADMAP.md, item 19).
+tomography and trace-distance solvers wait (ROADMAP.md, "The rest").
 """
 from __future__ import annotations
 

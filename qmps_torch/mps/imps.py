@@ -1,14 +1,17 @@
 """Uniform MPS (counterpart of ``qmps_tpu.mps.imps``).
 
-Ported: ``merge``, the gauge helpers (``_cholesky_psd``, ``_qr_pos``,
-``_pinv_tri``), ``left_orthogonalise``, ``iMPS`` with its constructor,
-indexing, ``blocked``, ``d``, ``D``, ``left_canonicalise`` (1-site and
-n-site cells) and ``overlap``, and ``Map`` with ``asmatrix`` and
-``right_fixed_point``.  The other members (energies, correlators,
-``truncated``, ``right_canonicalise``, ``mixed`` and so on) wait
-(ROADMAP.md, item 4).  A tensor A has shape (d, D, D) = (physical, left,
-right); ``merge`` is batched over leading dimensions, the rest takes one
-state.
+Random states, the left and right canonical forms (1-site and n-site
+cells), the mixed gauge, Schmidt values, entropy and truncation, one- and
+two-site expectation values, correlators, the correlation length and the
+static structure factor, overlaps; ``Map`` and ``TransferMatrix``.
+``energy_variance`` and ``dA_dt`` need mps/tdvp and wait (ROADMAP.md,
+"VUMPS").  A tensor A has shape (d, D, D) = (physical, left, right);
+``merge`` is batched over leading dimensions, the rest takes one state.
+
+Every fixed point enters a gauge or an observable rotated to hermitian,
+then hermitized and given unit trace (``_unit_trace_herm``).  A squaring
+solve leaves it with an arbitrary global phase; near pi/2 the plain
+average (r + r^dag)/2, which the JAX package takes, cancels it.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from typing import Sequence
 
 import torch
 
+from ..config import CDTYPE, resolve_device
+from ..core.linalg import dominant_eig_dense, rotate_to_hermitian, spectral_radius_dense
 from . import transfer as tr
 
 
@@ -65,8 +70,20 @@ def _pinv_tri(M: torch.Tensor, rcond: float | None = None) -> torch.Tensor:
 
 
 def _unit_trace_herm(x: torch.Tensor) -> torch.Tensor:
+    """A fixed point that is hermitian up to a global phase as a unit-trace
+    hermitian matrix: the phase is removed before the average."""
+    x = rotate_to_hermitian(x)
     x = (x + x.mH) / 2
     return x / _trace(x)
+
+
+def random_tensor(generator: torch.Generator | None = None, d: int = 2, D: int = 2,
+                  dtype=CDTYPE, device=None) -> torch.Tensor:
+    """(d, D, D) tensor of complex normals drawn from ``generator`` on the
+    CPU; ``device`` as ``config.resolve_device`` (the card unless asked)."""
+    device = resolve_device(device)
+    x = torch.randn(2, d, D, D, generator=generator, dtype=torch.float64)
+    return torch.complex(x[0], x[1]).to(device, dtype)
 
 
 def left_orthogonalise(A: torch.Tensor, dense: bool = True):
@@ -82,6 +99,22 @@ def left_orthogonalise(A: torch.Tensor, dense: bool = True):
     return AL, M, eta
 
 
+def right_orthogonalise(A: torch.Tensor, dense: bool = True):
+    """Gauge A to right-canonical form: returns (AR, C, eta) with
+    sum AR AR^dag = I and r = C C^dag the dominant right fixed point."""
+    eta, r = tr.right_fixed_point(A, A, dense=dense)
+    C = _cholesky_psd(_unit_trace_herm(r))
+    AR = torch.einsum("ij,sjk,kl->sil", _pinv_tri(C), A, C) / torch.sqrt(eta.real)
+    return AR, C, eta
+
+
+def _expect(op: torch.Tensor, A: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """sum op[t, s] tr(A[s] r A[t]^dag): op's BRA index t pairs with the
+    conjugated tensor (the "st" order computes <op^T>, wrong for Y)."""
+    op = torch.as_tensor(op).to(A.device, A.dtype)
+    return torch.einsum("ts,sij,jk,tik->", op, A, r, A.conj())
+
+
 class iMPS:
     """Uniform MPS with a (usually 1-site) unit cell, xmps-compatible API."""
 
@@ -93,6 +126,13 @@ class iMPS:
 
     def __len__(self):
         return len(self.data)
+
+    @classmethod
+    def random(cls, generator: torch.Generator | None = None, d: int = 2, D: int = 2, n: int = 1,
+               dtype=CDTYPE, device=None) -> "iMPS":
+        """n random site tensors (``random_tensor``), drawn in turn from
+        ``generator``."""
+        return cls([random_tensor(generator, d, D, dtype, device) for _ in range(n)])
 
     @property
     def blocked(self) -> torch.Tensor:
@@ -129,6 +169,122 @@ class iMPS:
             M = R
         return iMPS(ALs)
 
+    def right_canonicalise(self) -> "iMPS":
+        """Per-site right-canonical form, sum_s A_i[s] A_i[s]^dag = I: the
+        mirror of ``left_canonicalise`` (one boundary fixed point, then an
+        RQ sweep right to left; imps.py:192-215)."""
+        if len(self.data) == 1:
+            AR, _, _ = right_orthogonalise(self.data[0])
+            return iMPS([AR])
+        A0 = self.blocked
+        _, r = tr.right_fixed_point(A0, A0)
+        C = _cholesky_psd(_unit_trace_herm(r))  # r = C C^dag
+        ARs = []
+        for A in reversed(self.data):
+            B = torch.einsum("sjk,kl->sjl", A, C)
+            d, Dl, Dr = B.shape
+            # RQ through the QR of the dagger: rows (Dl, d Dr)
+            Q, R = _qr_pos(B.transpose(0, 1).reshape(Dl, d * Dr).mH)
+            ARs.append(Q.mH.reshape(Dl, d, Dr).transpose(0, 1))
+            C = R.mH
+        return iMPS(list(reversed(ARs)))
+
+    def mixed(self):
+        """(AL, AR, C), the mixed gauge of the (blocked) state: AL C = C AR
+        (xmps iMPS.mixed; qmps/tools.py:184-186)."""
+        AL, _, _ = left_orthogonalise(self.blocked)
+        C = _cholesky_psd(self._r(AL))  # r = C C^dag
+        AR = torch.einsum("ij,sjk,kl->sil", _pinv_tri(C), AL, C)
+        return AL, AR, C
+
+    def schmidt_values(self) -> torch.Tensor:
+        """The bipartition's Schmidt coefficients, descending: the
+        normalised singular values of the mixed gauge's C."""
+        s = torch.linalg.svdvals(self.mixed()[2])
+        return s / torch.linalg.vector_norm(s)
+
+    def entanglement_entropy(self) -> torch.Tensor:
+        """Half-chain entropy -sum s^2 log s^2; the log's floor is the
+        type's tiny, so an exact zero adds 0, not NaN, in float32 too."""
+        s2 = self.schmidt_values() ** 2
+        return -torch.sum(s2 * torch.log(s2.clamp(min=torch.finfo(s2.dtype).tiny)))
+
+    def truncated(self, D_new: int):
+        """(state, kept weight): the state cut to bond dimension D_new by
+        keeping the D_new largest Schmidt vectors (AL projected onto the
+        leading left singular vectors of C, then left-canonicalised); the
+        weight is the sum of the kept squared Schmidt coefficients."""
+        AL, _, C = self.mixed()
+        U, s, _ = torch.linalg.svd(C)
+        s2 = (s / torch.linalg.vector_norm(s)) ** 2
+        P = U[:, :D_new]
+        A_new = torch.einsum("ij,sjk,kl->sil", P.mH, AL, P)
+        return iMPS([A_new]).left_canonicalise(), torch.sum(s2[:D_new])
+
+    # observables ------------------------------------------------------------
+    @staticmethod
+    def _r(AL: torch.Tensor) -> torch.Tensor:
+        return _unit_trace_herm(tr.right_fixed_point(AL, AL)[1])
+
+    def E(self, op: torch.Tensor, canonical: bool = True) -> torch.Tensor:
+        """Single-site expectation value <psi|op|psi> per site."""
+        AL = left_orthogonalise(self.blocked)[0] if canonical else self.blocked
+        return _expect(op, AL, self._r(AL))
+
+    def Es(self, ops: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The real parts of ``E`` of each of ``ops``, from one gauge."""
+        AL, _, _ = left_orthogonalise(self.blocked)
+        r = self._r(AL)
+        return torch.stack([_expect(op, AL, r).real for op in ops])
+
+    def E2(self, op2: torch.Tensor) -> torch.Tensor:
+        """Two-site expectation value of a (d^2, d^2) operator."""
+        AL, _, _ = left_orthogonalise(self.blocked)
+        return _expect(op2, merge(AL, AL), self._r(AL))
+
+    def energy(self, h: torch.Tensor) -> torch.Tensor:
+        return self.E2(h).real
+
+    def correlation_length(self) -> torch.Tensor:
+        """xi = -1 / log(|lambda_2| / |lambda_1|) of the transfer spectrum:
+        the dominant pair deflated with its left and right eigenvectors, and
+        |lambda_2| the deflated matrix's spectral radius (Gelfand), which
+        is right when lambda_2 is a complex-conjugate pair."""
+        AL, _, _ = left_orthogonalise(self.blocked)
+        E = tr.transfer_dense(AL, AL)
+        lam1, v1 = dominant_eig_dense(E)
+        _, w1 = dominant_eig_dense(E.mH)
+        w1 = w1 / torch.vdot(w1, v1).conj()
+        ratio = spectral_radius_dense(E - lam1 * torch.outer(v1, w1.conj())) / lam1.abs()
+        fi = torch.finfo(ratio.dtype)
+        return -1.0 / torch.log(ratio.clamp(fi.tiny, 1 - fi.eps))
+
+    def correlator(self, op1, op2, max_dist: int = 20) -> torch.Tensor:
+        """Connected two-point function C(r) = <O1_0 O2_r> - <O1><O2> for
+        r = 1..max_dist, by repeated transfer application."""
+        AL, _, _ = left_orthogonalise(self.blocked)
+        r = self._r(AL)
+        op1 = torch.as_tensor(op1).to(AL.device, AL.dtype)
+        op2 = torch.as_tensor(op2).to(AL.device, AL.dtype)
+        T = torch.einsum("ts,sij,jk,tlk->il", op2, AL, r, AL.conj())  # r with O2 inserted
+        e1e2 = _expect(op1, AL, r) * _trace(T)
+        cs = []
+        for _ in range(max_dist):
+            cs.append(_expect(op1, AL, T))
+            T = tr.right_matvec(AL, AL, T)
+        return (torch.stack(cs) - e1e2).real
+
+    def static_structure_factor(self, op, p, max_dist: int = 60) -> torch.Tensor:
+        """s(p) = sum_r e^{ipr} <O_0 O_r>_c for a hermitian O: C(0) = <O^2>
+        - <O>^2 plus 2 sum_{r>=1} cos(pr) C(r) (C from ``correlator``)."""
+        op = torch.as_tensor(op)
+        Cr = self.correlator(op, op, max_dist=max_dist)
+        e1 = self.E(op).real
+        e2 = self.E(op @ op).real
+        r = torch.arange(1, max_dist + 1, dtype=Cr.dtype, device=Cr.device)
+        p = torch.as_tensor(p, dtype=Cr.dtype, device=Cr.device)
+        return (e2 - e1 ** 2) + 2.0 * torch.sum(torch.cos(p[..., None] * r) * Cr, dim=-1)
+
     def overlap(self, other: "iMPS") -> torch.Tensor:
         """|<psi_A|psi_B>|^2 per site = |dominant eigenvalue of the mixed
         transfer operator|^2, both states canonicalized (xmps overlap, as
@@ -151,3 +307,38 @@ class Map:
 
     def right_fixed_point(self, dense: bool = True):
         return tr.right_fixed_point(self.A, self.B, dense=dense)
+
+    def left_fixed_point(self, dense: bool = True):
+        """(x, l) with sum_s A[s]^dag l B[s] = conj(x) l, x the dominant
+        eigenvalue shared with the right fixed point.  Circuit readout
+        identity: 2 psi[0] = Tr(g l^T)."""
+        lam, l = tr.left_fixed_point(self.A, self.B, dense=dense)
+        return lam.conj(), l
+
+    @staticmethod
+    def _residual(x: torch.Tensor, Ex: torch.Tensor, lam) -> torch.Tensor:
+        if lam is None:
+            lam = torch.vdot(x.reshape(-1), Ex.reshape(-1)) / torch.vdot(x.reshape(-1), x.reshape(-1))
+        return torch.linalg.matrix_norm(Ex - lam * x)
+
+    def is_right_eigenvector(self, r: torch.Tensor, lam=None) -> torch.Tensor:
+        """|E r - lam r|_F (lam the Rayleigh quotient if not given)."""
+        return self._residual(r, tr.right_matvec(self.A, self.B, r), lam)
+
+    def is_left_eigenvector(self, l: torch.Tensor, lam=None) -> torch.Tensor:
+        """|l E - lam l|_F (lam the Rayleigh quotient if not given)."""
+        return self._residual(l, tr.left_matvec(self.A, self.B, l), lam)
+
+
+class TransferMatrix(Map):
+    """Transfer operator of a single state (xmps TransferMatrix analogue)."""
+
+    def __init__(self, A: torch.Tensor):
+        super().__init__(A, A)
+
+    def eigs(self):
+        """(eta, l, r): the dominant eigenvalue with the left and right
+        fixed points, hermitian with unit trace (qmps/tools.py:176-182)."""
+        eta, r = tr.right_fixed_point(self.A, self.A)
+        _, l = tr.left_fixed_point(self.A, self.A)
+        return eta, _unit_trace_herm(l), _unit_trace_herm(r)

@@ -6,7 +6,7 @@ eigenvalue with its rank-1 implicit adjoint (``dominant_eigval_dense``),
 the eigenpair in a holomorphic c^T v = 1 gauge with its bordered-solve
 adjoint (``dominant_eigpair_cgauge``) and the dense ``right_fixed_point``
 and ``left_fixed_point``.  The matvec (Krylov) forms and the recycled
-solvers wait (ROADMAP.md, items 4 and 14).
+solvers wait (ROADMAP.md, "Large D: Krylov and the Stiefel sweep").
 
 The adjoints are ``torch.autograd.Function``s.  For a holomorphic map the
 JAX custom_vjp's cotangent Ebar pairs as dlam = sum Ebar dE; PyTorch's
@@ -101,7 +101,7 @@ def right_fixed_point(A: torch.Tensor, B: torch.Tensor, dense: bool = True, iter
     if not dense:
         raise NotImplementedError(
             "right_fixed_point(dense=False) needs the restarted-Arnoldi matvec solver "
-            "of core/krylov (ROADMAP.md, item 14)"
+            "of core/krylov (ROADMAP.md, 'Large D: Krylov and the Stiefel sweep')"
         )
     D1, D2 = A.shape[-2], B.shape[-2]
     E = transfer_dense(A, B)

@@ -2,7 +2,7 @@
 
 Ported: the exact-environment energy of a D = 2 state unitary, batched
 over any leading dimensions.  The circuit, two-site and joint-environment
-energies wait (ROADMAP.md, item 19).
+energies wait (ROADMAP.md, "The rest").
 """
 from __future__ import annotations
 

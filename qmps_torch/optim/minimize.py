@@ -10,9 +10,9 @@
 - ``minimize_lbfgs``: ``torch.optim.LBFGS`` (memory 10, strong-Wolfe line
   search).  optax's L-BFGS (zoom line search) cannot be matched iterate
   for iterate, so parity is held on the converged value (ROADMAP.md,
-  section 3).
+  "Faults in the port against the reference").
 
-The scipy bridge waits (ROADMAP.md, item 19).
+The scipy bridge waits (ROADMAP.md, "The rest").
 """
 from __future__ import annotations
 

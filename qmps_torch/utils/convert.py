@@ -1,5 +1,6 @@
 """Carrying state across from the JAX package: its arrays (or any numpy
-array-like) become this package's tensors on a chosen device and type."""
+array-like) become this package's tensors on a chosen device and type;
+its ``EvolveRecord``s and checkpoint trees become this package's."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,3 +13,23 @@ def from_numpy(x, device="cpu", dtype: torch.dtype | None = None) -> torch.Tenso
     (the array's own type if None).  Always a copy: a JAX array's host
     view is read-only."""
     return torch.tensor(np.asarray(x), device=device, dtype=dtype)
+
+
+def from_tree(tree, device="cpu", dtype: torch.dtype | None = None):
+    """A tree of dicts, lists and tuples (a checkpoint's, as
+    ``utils.checkpoint`` saves them) with array or scalar leaves -> the
+    same tree of tensors (``from_numpy`` on each leaf)."""
+    if isinstance(tree, dict):
+        return {k: from_tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_tree(v, device, dtype) for v in tree)
+    return from_numpy(tree, device, dtype)
+
+
+def from_evolve_record(rec, device="cpu", dtype: torch.dtype | None = None):
+    """The JAX package's ``EvolveRecord`` (or anything with its four
+    fields) -> ``qmps_torch.algorithms.evolve.EvolveRecord``."""
+    from ..algorithms.evolve import EvolveRecord
+
+    return EvolveRecord(**{f: from_numpy(getattr(rec, f), device, dtype)
+                           for f in ("params", "loschmidt", "evs", "errors")})

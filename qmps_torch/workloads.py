@@ -2,7 +2,7 @@
 of ``qmps_tpu.workloads``).
 
 Ported: config 5, ``BrickworkConfig``, the gen-2 brickwork overlap
-throughput.  The other configurations wait (ROADMAP.md, item 19).
+throughput.  The other configurations wait (ROADMAP.md, "The rest").
 """
 from __future__ import annotations
 

@@ -186,6 +186,31 @@ def test_quench_on_card():
 
 
 @pytest.mark.cuda
+def test_mps_time_evolve_on_card(tmp_path):
+    """MPSTimeEvolve in float32 on the card against the same run on the
+    CPU in float32 (4 steps of 8 adam steps from one params0): loschmidt
+    to 1e-5; it launches no hand kernel (the dense objective); and a run
+    killed after 2 steps and resumed equals the uninterrupted one."""
+    from qmps_torch.algorithms.evolve import MPSTimeEvolve
+
+    dev = require_cuda()
+    p0 = torch.from_numpy(np.random.default_rng(0).standard_normal(15) * 0.1).float()
+    stepper = MPSTimeEvolve(tfim(0.5), dt=0.05, inner_steps=8)
+    _lib.reset_launches()
+    rec = stepper.evolve(p0.to(dev), 4)
+    torch.cuda.synchronize()
+    assert not any(_lib.launches.values())
+    assert rec.loschmidt.device.type == "cuda" and rec.loschmidt.dtype == torch.float32
+    ref = stepper.evolve(p0, 4)
+    np.testing.assert_allclose(to_np(rec.loschmidt), to_np(ref.loschmidt), atol=1e-5)
+    ckpt = str(tmp_path / "traj.npz")
+    stepper.evolve(p0.to(dev), 2, checkpoint_path=ckpt, checkpoint_every=1)
+    resumed = MPSTimeEvolve(tfim(0.5), dt=0.05, inner_steps=8).evolve(p0.to(dev), 4, checkpoint_path=ckpt)
+    for f in ("params", "loschmidt", "evs", "errors"):
+        assert torch.equal(getattr(resumed, f), getattr(rec, f)), f
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 1000, 16384])
 def test_k6_matches_plain(B):
     """K6 (complex64) against the plain version at complex128 on the same

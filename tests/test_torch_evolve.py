@@ -94,23 +94,26 @@ def test_hamiltonian_matches_jax():
 
 
 def test_engine_and_ansatz_validation():
-    """The default ansatz "suN" runs, and equals JAX's energy at the same
-    parameters (1e-10); an unknown ansatz, an unported one and an unported
-    method raise."""
+    """The default ansatz "suN" and the shallow circuit ansatze run, and
+    equal JAX's energy at the same parameters (1e-10); an unknown ansatz
+    and an unported method raise."""
     from qmps_tpu.circuits import ansatze as jans
     from qmps_tpu.objectives import energy as jenergy
 
     with pytest.raises(ValueError, match="engine"):
         batched_quench_sweep(1.5, [0.2], 0.1, 1, inner_steps=1, gs_steps=2, engine="palas", device="cpu")
+    h = jnp.asarray(tfim(1.0).to_matrix())
     p0 = np.random.default_rng(1).standard_normal(15) * 0.5
     gs = find_ground_state(tfim(1.0), steps=1, initial_guess=torch.from_numpy(p0))
-    e_j = jenergy.energy_exact_env(jans.full_state_suN(jnp.asarray(np.asarray(gs.params)), 2),
-                                   jnp.asarray(tfim(1.0).to_matrix()))
+    e_j = jenergy.energy_exact_env(jans.full_state_suN(jnp.asarray(np.asarray(gs.params)), 2), h)
     assert abs(gs.energy - float(e_j)) < 1e-10
+    for ansatz, n in (("qaoa", 4), ("cnot", 4), ("cnot3", 6), ("cnot_nonuniform", 8), ("exact_after_4", 12)):
+        p0 = np.random.default_rng(2).standard_normal(n) * 0.5
+        gs = find_ground_state(tfim(1.0), ansatz=ansatz, steps=1, initial_guess=torch.from_numpy(p0))
+        e_j = jenergy.energy_exact_env(jans.STATE_ANSATZE[ansatz](2, jnp.asarray(np.asarray(gs.params))), h)
+        assert abs(gs.energy - float(e_j)) < 1e-10, ansatz
     with pytest.raises(ValueError, match="unknown ansatz"):
         find_ground_state(tfim(1.0), ansatz="sun", steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        find_ground_state(tfim(1.0), ansatz="qaoa", steps=1, device="cpu")
     with pytest.raises(NotImplementedError, match="rotosolve"):
         find_ground_state(tfim(1.0), ansatz="full15", method="rotosolve", steps=1, device="cpu")
 
@@ -193,11 +196,13 @@ def test_float32_quench_gap_is_the_method():
     assert 0.5 < rms["port32"] / rms["jax32"] < 2.0 and max(rms.values()) < 2e-3
 
 
-@pytest.mark.parametrize("entry", ["find_ground_state", "sweep_ground_states_fused", "batched_quench_sweep"])
+@pytest.mark.parametrize("entry", ["find_ground_state", "sweep_ground_states_fused", "batched_quench_sweep",
+                                   "MPSTimeEvolve.evolve", "loschmidt_echo_run", "compile_state_to_ansatz"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
-    """Called without ``device`` on floats or lists, an entry point asks
-    for the card and, on a machine without one, raises before it computes
-    anything on the CPU."""
+    """Called without ``device`` on floats, lists or arrays, an entry point
+    asks for the card and, on a machine without one, raises before it
+    computes anything on the CPU."""
+    from qmps_torch.algorithms.evolve import MPSTimeEvolve, compile_state_to_ansatz, loschmidt_echo_run
     from qmps_torch.parallel.sweep import sweep_ground_states_fused
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -206,6 +211,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "sweep_ground_states_fused": lambda: sweep_ground_states_fused([0.5, 1.0], steps=1),
         "batched_quench_sweep": lambda: batched_quench_sweep(1.5, [0.2], 0.1, 1, inner_steps=1,
                                                              params0=np.zeros(15)),
+        "MPSTimeEvolve.evolve": lambda: MPSTimeEvolve(tfim(0.5), 0.05, inner_steps=1).evolve(np.zeros(15), 1),
+        "loschmidt_echo_run": lambda: loschmidt_echo_run(1.5, 0.2, 0.1, 1, inner_steps=1, gs_steps=1),
+        "compile_state_to_ansatz": lambda: compile_state_to_ansatz(np.eye(4)[:, :2].reshape(2, 2, 2).copy(),
+                                                                   steps=1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -217,7 +226,11 @@ def test_port_never_imports_jax():
     names = [m.name for m in pkgutil.walk_packages(qmps_torch.__path__, "qmps_torch.")]
     assert {"qmps_torch.algorithms.evolve", "qmps_torch.kernels.tdvp_fused",
             "qmps_torch.algorithms.brickwork_tdvp", "qmps_torch.kernels.brickwork_pallas",
-            "qmps_torch.core.lie", "qmps_torch.env.variational", "qmps_torch.workloads"} <= set(names)
+            "qmps_torch.core.lie", "qmps_torch.env.variational", "qmps_torch.workloads",
+            "qmps_torch.utils.checkpoint", "qmps_torch.utils.logging", "qmps_torch.utils.host_eval",
+            "qmps_torch.utils.convert", "qmps_torch.core.linalg", "qmps_torch.core.gates",
+            "qmps_torch.embed.unitaries", "qmps_torch.circuits.ansatze", "qmps_torch.circuits.brickwork",
+            "qmps_torch.mps.imps", "qmps_torch.ham.hamiltonian", "qmps_torch.objectives.overlap"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}: importlib.import_module(m)\n"
