@@ -86,7 +86,21 @@ Phases (any failure exits non-zero, and nothing is caught):
      uninterrupted one; compile_state_to_ansatz to overlap > 1 - 1e-4; one
      step of 50 inner steps under torch.profiler (device idle share, the
      largest host operations).  The dense objective launches no hand
-     kernel, and the counters show it.
+     kernel, and the counters show it;
+ 14. the large-D path in float32 (``large_d_path``), no hand kernel (the
+     counters show it): one complex64 bmm's error against complex128 at
+     full float32 and at the "default" tier; ``StiefelSweepConfig`` at
+     full width, 1,024 g in [0.1, 2.0] + 1e-3, D = 16 (300 steps, full
+     float32) and D = 32 (180 steps, "default" tier, 60-step full tail),
+     each timed after one untimed call, read back in float64 on the host
+     (``host_f64_sweep_energies`` in 8 processes, ``readout_f64``) against
+     the exact energy: median < 5e-4,
+     max < 5e-3, min > -1e-4; the variance certificates of all 1,024 D = 16
+     points (finite, > -1e-6, one against a dense complex128 solve to 1e-4);
+     ``right_fixed_point(dense=False)`` against the dense path at D = 16
+     (lam 1e-5, r 1e-4); ``LargeDConfig`` (D = 64, 150 steps, the GMRES
+     adjoint) within (-1e-4, 5e-3) of exact; one D = 16 descent step of the
+     1,024 points under torch.profiler.
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
@@ -103,6 +117,7 @@ Prints one JSON line of per-kernel results, the card line, and last
 """
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -127,6 +142,13 @@ BW_BATCH, BW_G0, BW_G1 = 65536, 1.5, 0.2
 # the single-trajectory evolve pipeline at the JAX test's own size
 # (tests/test_evolve.py:50-60): 20 steps to t = 0.8 of 100 adam steps
 ECHO_G0, ECHO_G1, ECHO_T, ECHO_STEPS, ECHO_INNER, ECHO_GS = 1.5, 0.2, 0.8, 20, 100, 300
+# the large-D path: StiefelSweepConfig at full width (qmps_tpu/workloads.py:218-262)
+# with bench.py's schedules (bench.py:765-770): D = 16 300 steps in full
+# float32, D = 32 180 steps at the "default" tier with a 60-step full tail;
+# LargeDConfig (workloads.py:348-380): D = 64, 150 steps
+STF_POINTS, STF_G = 1024, (0.1, 2.0)
+STF_RUNS = {16: {"steps": 300}, 32: {"steps": 180, "precision": "default", "polish_steps": 60}}
+LARGE_D, LARGE_D_STEPS = 64, 150
 
 # published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
 # tensor cores, TF32 on the tensor cores (dense), device memory
@@ -604,6 +626,182 @@ def evolve_pipeline(dev):
             "evolve_max_rate_error": float(err.max()), "evolve_last_rate": float(got[-1]),
             "evolve_gs_energy_error_f64": err_gs, "evolve_resume_max_difference": d_resume,
             "evolve_compile_overlap": ov}, rec.params[-1]
+
+
+def _readout_part(As, rs, hs):
+    from qmps_torch.utils.host_eval import host_f64_sweep_energies
+
+    return host_f64_sweep_energies(As, rs, hs)[0]
+
+
+def readout_f64(As, rs, gvals, workers=8):
+    """Float64 energies of a sweep's returned states on the host:
+    ``host_f64_sweep_energies`` over ``workers`` spawned processes, point i
+    to worker i mod workers (near-critical points, whose ARPACK tail is
+    the cost, lie together on the grid).  Each point's readout depends on
+    its own state only, so the result is the one call's."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from qmps_torch.utils.host_eval import device_to_host_c128, tfim_h64_batch
+
+    A, r, h = device_to_host_c128(As), device_to_host_c128(rs), tfim_h64_batch(gvals)
+    threads = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
+    os.environ.update(dict.fromkeys(threads, "1"))  # one BLAS thread a worker, read at its numpy import
+    try:
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            parts = [pool.submit(_readout_part, A[k::workers], r[k::workers], h[k::workers])
+                     for k in range(workers)]
+            e64 = np.empty(len(gvals))
+            for k, part in enumerate(parts):
+                e64[k::workers] = part.result()
+    finally:
+        for k, v in threads.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return e64
+
+
+def large_d_path(dev, card):
+    """Phase 14: the large-D path on the card, float32, no hand kernel.
+    Returns the figures of the summary line."""
+    from qmps_torch.ham.exact import tfim_gs_energy_f64
+    from qmps_torch.kernels import _lib
+    from qmps_torch.mps.tdvp import energy_variance_density
+    from qmps_torch.mps.transfer import right_fixed_point
+    from qmps_torch.parallel.sweep import (_matmul_tier, _stiefel_sweep_programs, stiefel_point_chunk,
+                                           sweep_variance_certificates, tfim_matrix)
+    from qmps_torch.workloads import LargeDConfig, StiefelSweepConfig
+
+    out = {}
+    _lib.reset_launches()
+
+    # does a complex64 bmm take TF32 under the "default" tier?
+    g = torch.Generator().manual_seed(0)
+    X, Y = (torch.randn(1024, 32, 32, dtype=torch.complex128, generator=g).to(dev) for _ in range(2))
+    ref = X @ Y
+    tf32_err = {}
+    for tier in ("highest", "default"):
+        with _matmul_tier(tier):
+            tf32_err[tier] = ((X.to(torch.complex64) @ Y.to(torch.complex64)).to(torch.complex128) - ref).abs().max().item()
+    print(f"complex64 bmm (1024 x 32x32) against complex128: max |error| {tf32_err['highest']:.3g} at full float32, "
+          f"{tf32_err['default']:.3g} at the 'default' tier (one-pass TF32 where cuBLAS takes it)")
+    out["tf32_bmm_error_fp32"], out["tf32_bmm_error_default"] = tf32_err["highest"], tf32_err["default"]
+
+    gvals = np.linspace(*STF_G, STF_POINTS) + 1e-3
+    exact = tfim_gs_energy_f64(gvals)
+    keep = {}
+    for D, kw in STF_RUNS.items():
+        cfg = StiefelSweepConfig(n_points=STF_POINTS, D=D, device=str(dev), **kw)
+        gs = cfg.grid()
+        ri = 24 if D < 16 else 96  # the sweep's default recycle_iters
+        chunk = stiefel_point_chunk(STF_POINTS, D, 1, ri, torch.complex64, dev)
+        t0 = time.perf_counter()
+        cfg.sweep(gs)  # the untimed call
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        es, As, rs = cfg.sweep(gs + 1e-3)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        err32 = es.double().cpu().numpy() - exact
+        t0 = time.perf_counter()
+        err = readout_f64(As, rs, gvals) - exact
+        t_read = time.perf_counter() - t0
+        tag = f"stiefel_d{D}"
+        print(f"Stiefel sweep D = {D} ({STF_POINTS} points, {cfg.steps} steps, precision {cfg.precision}, polish "
+              f"{cfg.polish_steps}, recycle_iters {ri}, point_chunk {chunk} of {STF_POINTS}; {As.dtype}): "
+              f"{dt:.4f} s ({STF_POINTS / dt:.2f} points/s; the untimed call {t_first:.4f} s), peak "
+              f"{peak:.3f} GiB; float64 readout ({t_read:.2f} s, 8 host processes): median {np.median(err):.4g} "
+              f"(< 5e-4), max {err.max():.4g} (< 5e-3), min {err.min():.4g} (> -1e-4); float32 energies: "
+              f"median {np.median(err32):.4g}, max {err32.max():.4g}, min {err32.min():.4g} (on {card})")
+        require(es.shape == (STF_POINTS,) and As.shape == (STF_POINTS, 2, D, D) and rs.shape == (STF_POINTS, D, D)
+                and np.all(np.isfinite(err)) and np.all(np.isfinite(err32)),
+                f"D = {D}: finite energies of the expected shapes")
+        require(np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-4,
+                f"D = {D} sweep's float64 readout against the exact energy")
+        out.update({f"{tag}_seconds": dt, f"{tag}_points_per_second": STF_POINTS / dt,
+                    f"{tag}_first_call_seconds": t_first, f"{tag}_peak_gib": peak, f"{tag}_point_chunk": chunk,
+                    f"{tag}_median_error": float(np.median(err)), f"{tag}_max_error": float(err.max()),
+                    f"{tag}_min_error": float(err.min()), f"{tag}_median_error_f32": float(np.median(err32)),
+                    f"{tag}_max_error_f32": float(err32.max()), f"{tag}_readout_seconds": t_read})
+        keep[D] = (gs + 1e-3, As, rs)
+
+    # certificates on every point of the smaller D (16)
+    D0 = min(STF_RUNS)
+    gs16, As16, rs16 = keep[D0]
+    sweep_variance_certificates(gs16[:16], As16[:16], rs16[:16])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    var = sweep_variance_certificates(gs16, As16, rs16)
+    torch.cuda.synchronize()
+    t_cert = time.perf_counter() - t0
+    v = var.double().cpu().numpy()
+    i = STF_POINTS // 2
+    A = As16[i].to(torch.complex128)
+    r = rs16[i].to(torch.complex128)
+    for _ in range(60):
+        r = torch.einsum("sai,ij,sbj->ab", A, r, A.conj())
+        r = (r + r.mH) / 2
+        r = r / torch.linalg.matrix_norm(r)
+    dense = energy_variance_density(A, r / torch.trace(r), tfim_matrix(gs16[i].double()).to(A.dtype)).item()
+    d_cert = abs(dense - v[i])
+    print(f"variance certificates ({STF_POINTS} D = {D0} points, GMRES k 48 x 4, {var.dtype}): {t_cert:.4f} s; "
+          f"median {np.median(v):.4g}, max {v.max():.4g}, min {v.min():.4g} (> -1e-6); point {i}: {v[i]:.6g} "
+          f"against the dense complex128 solve {dense:.6g} (|d| {d_cert:.3g} < 1e-4 max(1, |dense|))")
+    require(v.shape == (STF_POINTS,) and np.all(np.isfinite(v)) and v.min() > -1e-6,
+            "the certificates finite and > -1e-6")
+    require(d_cert < 1e-4 * max(1.0, abs(dense)), "one GMRES certificate against the dense one")
+    out.update({"certificate_seconds": t_cert, "certificate_median": float(np.median(v)),
+                "certificate_max": float(v.max()), "certificate_dense_difference": float(d_cert)})
+
+    # the matvec fixed point against the dense one on a seeded left-canonical D = 16 state
+    A = torch.from_numpy(left_canonical(np.random.default_rng(3), 1, D=16)[0]).to(dev, torch.complex64)
+    lam_m, r_m = right_fixed_point(A, A, dense=False)
+    lam_d, r_d = right_fixed_point(A, A)
+    d_lam, d_r = abs(complex(lam_m) - complex(lam_d)), (r_m - r_d).abs().max().item()
+    print(f"right_fixed_point(dense=False) at D = 16 (complex64): |dlam| {d_lam:.3g} (< 1e-5), |dr| {d_r:.3g} "
+          f"(< 1e-4) against the dense path")
+    require(d_lam < 1e-5 and d_r < 1e-4, "the matvec fixed point against the dense one")
+    out.update({"matvec_fixed_point_lam_difference": d_lam, "matvec_fixed_point_r_difference": d_r})
+
+    # LargeDConfig: D = 64 runs the GMRES branch of the warm adjoint
+    m = LargeDConfig(D=LARGE_D, steps=LARGE_D_STEPS, device=str(dev)).run()
+    print(f"LargeDConfig(D = {LARGE_D}, {LARGE_D_STEPS} steps, GMRES adjoint): {m['seconds']:.4f} s "
+          f"({m['steps_per_sec']:.2f} steps/s), energy {m['energy']:.8f}, error {m['error']:.4g} "
+          f"(in (-1e-4, 5e-3)), best seen {m['best_seen']:.8f}")
+    require(math.isfinite(m["error"]) and -1e-4 < m["error"] < 5e-3, "LargeDConfig's error")
+    out.update({f"large_d{LARGE_D}_{k}": m[k] for k in ("seconds", "steps_per_sec", "error")})
+
+    # one D = 16 step at the sweep's batch, unprofiled and profiled
+    init, advance, _ = _stiefel_sweep_programs(D0, 0.08, 0.9, 1, 24 if D0 < 16 else 96, 200)
+    x = torch.randn(2, STF_POINTS, 2 * D0, D0, generator=torch.Generator().manual_seed(5)).to(dev, gs16.dtype)
+    hs, V, M, r = init(gs16, x[0], x[1])
+    V, M, r = advance(V, M, r, hs, 2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    advance(V, M, r, hs, 1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    host, busy, top, ops = device_breakdown(lambda: advance(V, M, r, hs, 1), 1, host_ops=10)
+    idle = None if busy is None else 1 - busy / step_ms
+    print(f"D = {D0} descent step ({STF_POINTS} points) under torch.profiler: {step_ms:.4f} ms unprofiled, "
+          f"{host:.4f} profiled; {ops:.0f} device operations a step; device busy "
+          + ("not measured (no kernel recorded)" if busy is None else
+             f"{busy:.4f} ms, idle share {idle:.4f}; largest: " + "; ".join(f"{n[:60]} {t:.4f} ms" for n, t in top))
+          + f" (on {card})")
+    out.update({f"stiefel_d{D0}_step_ms": step_ms, f"stiefel_d{D0}_step_device_ops": ops,
+                f"stiefel_d{D0}_step_idle_share": idle})
+
+    launched = dict(_lib.launches)
+    print(f"phase 14 hand-kernel launches: {launched}")
+    require(not any(launched.values()), "the large-D path launches no hand kernel")
+    return out
 
 
 def big_tdvp_inputs(rng, D, dev):
@@ -1340,6 +1538,11 @@ def main() -> int:
              + "; ".join(f"{n[:60]} {t / 50:.5f} ms" for n, t in top13)) + f" (on {card})")
     print(f"phase 13 in {time.perf_counter() - t13:.1f} s")
 
+    # ---- 14. the large-D path: Krylov, the Stiefel sweeps, certificates ----
+    t14 = time.perf_counter()
+    large = large_d_path(dev, card)
+    print(f"phase 14 in {time.perf_counter() - t14:.1f} s")
+
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
         "K2": ("energy_fwd", "qmps_torch/csrc/energy_fused.cu", "qmps_tpu/kernels/energy_fused.py:271"),
@@ -1374,7 +1577,8 @@ def main() -> int:
                       **{f"tdvp_d{D}_objectives_per_second": r for D, r in big_rates.items()},
                       **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},
                       **{f"tdvp_d{D}_value_error": e[0] for D, e in big_errs.items()},
-                      **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}, **evo}))
+                      **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}, **evo,
+                      **large}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,9 +3,9 @@
 Random states, the left and right canonical forms (1-site and n-site
 cells), the mixed gauge, Schmidt values, entropy and truncation, one- and
 two-site expectation values, correlators, the correlation length and the
-static structure factor, overlaps; ``Map`` and ``TransferMatrix``.
-``energy_variance`` and ``dA_dt`` need mps/tdvp and wait (ROADMAP.md,
-"VUMPS").  A tensor A has shape (d, D, D) = (physical, left, right);
+static structure factor, overlaps, the energy variance (mps/tdvp);
+``Map`` and ``TransferMatrix``.  ``dA_dt`` needs the rest of mps/tdvp
+and waits (ROADMAP.md, "VUMPS").  A tensor A has shape (d, D, D) = (physical, left, right);
 ``merge`` is batched over leading dimensions, the rest takes one state.
 
 Every fixed point enters a gauge or an observable rotated to hermitian,
@@ -244,6 +244,16 @@ class iMPS:
 
     def energy(self, h: torch.Tensor) -> torch.Tensor:
         return self.E2(h).real
+
+    def energy_variance(self, h: torch.Tensor, env_solver: str = "dense") -> torch.Tensor:
+        """Per-site energy variance (<H^2> - <H>^2)/N for H = sum h_{n,n+1}:
+        zero iff the state is an exact eigenstate; the oracle-free
+        convergence certificate (``tdvp.energy_variance_density``)."""
+        from .tdvp import energy_variance_density
+
+        AL, _, _ = left_orthogonalise(self.blocked)
+        h = torch.as_tensor(h).to(AL.device, AL.dtype)
+        return energy_variance_density(AL, self._r(AL), h, env_solver=env_solver)
 
     def correlation_length(self) -> torch.Tensor:
         """xi = -1 / log(|lambda_2| / |lambda_1|) of the transfer spectrum:

@@ -1,15 +1,28 @@
-"""The D = 2 phase-diagram sweep (counterpart of ``qmps_tpu.parallel.sweep``).
+"""Phase-diagram sweeps (counterpart of ``qmps_tpu.parallel.sweep``).
 
 A sweep is one batch: every point and every restart is one row of the
-(B, 4, 2) isometry batch, optimized together; the fused energy objective
-(kernels/energy_fused.py) evaluates the whole batch's energies and
-gradients in one forward and one backward launch per step.
+isometry batch, optimized together.
+- D = 2 (``sweep_ground_states_fused``): the fused energy objective
+  (kernels/energy_fused.py) evaluates the whole batch's energies and
+  gradients in one forward and one backward launch per step.
+- Large D (``sweep_ground_states_stiefel``): direct Stiefel descent on
+  the (2D, D) isometries with recycled environments (plain autograd back
+  through the warm power matvecs) and a Newton-Schulz polar retraction,
+  all batched PyTorch products, as the JAX package runs it with XLA and
+  no Pallas kernel; ``sweep_variance_certificates`` reads each returned
+  state's energy variance, and ``grow_isometry`` embeds a D state into 2D.
+The JAX package's ``mesh`` (one card here) and scan-length ``chunk``
+(a TPU compile workaround) have no counterpart.
 """
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 from ..config import default_dtypes, resolve_device
+from ..core.linalg import _trace
 from ..core.paulis import I2, X, Z
 from ..kernels.energy_fused import energy_objective_fused
 
@@ -129,3 +142,272 @@ def _fused_sweep_programs(lr, momentum, restarts, iters):
         return er.min(dim=1).values, Vbest.reshape(-1, 2, 2, 2).transpose(1, 2).contiguous()
 
     return init, advance, finish
+
+
+# ---------------------------------------------------------------------------
+# Large D: the Stiefel sweep (qmps_tpu/parallel/sweep.py:589-975)
+# ---------------------------------------------------------------------------
+
+#: complex (D, D) tensors autograd keeps for each warm iteration of a point
+#: in the descent step, counted with saved-tensor hooks on the CPU
+#: (tests/test_torch_stiefel_sweep.py::test_point_chunk_rule_counts_the_saved_tensors)
+SAVED_PER_ITER = 4
+
+
+def stiefel_point_chunk(n: int, D: int, restarts: int, recycle_iters: int, dtype, device) -> int:
+    """Points a descent program takes at once: all n on the CPU; on CUDA
+    as many as half the card's free memory holds of the unroll stack,
+    recycle_iters x SAVED_PER_ITER complex (D, D) tensors per restart
+    slot (a D = 32 point with 96 iterations at complex64: 3.1 MB)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return n
+    free, _ = torch.cuda.mem_get_info(device)
+    per_point = restarts * recycle_iters * SAVED_PER_ITER * D * D * torch.empty(0, dtype=dtype).element_size()
+    return max(1, min(n, int(free // 2 // per_point)))
+
+
+def _polar_ns(W: torch.Tensor, iters: int = 10) -> torch.Tensor:
+    """Batched polar factor of (..., n, m) tall matrices by the coupled
+    Newton-Schulz inverse-square-root iteration: batched m x m products
+    only.  W is near-isometric along the descent (W^dag W ~ I); the trace
+    scaling centres the spectrum at 1 and a relative jitter (1e-6 in
+    float32, 1e-12 in float64) floors W^dag W away from singularity."""
+    m = W.shape[-1]
+    eye = torch.eye(m, dtype=W.dtype, device=W.device)
+    H = W.mH @ W
+    c = _trace(H).real / m
+    c = c.clamp(min=torch.finfo(c.dtype).tiny)
+    jit_eps = 1e-6 if torch.finfo(c.dtype).eps > 1e-10 else 1e-12
+    Y = H / c[..., None, None] + jit_eps * eye
+    Z = eye.expand(Y.shape)
+    for _ in range(iters):
+        T = 1.5 * eye - 0.5 * (Z @ Y)
+        Y = Y @ T
+        Z = T @ Z
+    return W @ Z / torch.sqrt(c)[..., None, None]
+
+
+_TIERS = (None, "highest", "high", "default")
+
+
+@contextlib.contextmanager
+def _matmul_tier(precision: str | None):
+    """The JAX package's matmul-precision tiers, as cuBLAS has them:
+    "default" (one bf16 pass on the TPU) -> one-pass TF32; "high" (three
+    bf16 passes, near float32: cuBLAS has no counterpart) and "highest" ->
+    full float32, the package's pin.  Restores the float32 matmul
+    precision and ``allow_tf32`` on exit."""
+    if precision not in _TIERS:
+        raise ValueError(f"precision must be one of {_TIERS}, not {precision!r}")
+    if precision != "default":
+        yield
+        return
+    saved = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+
+
+def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, recycle_iters: int,
+                            final_iters: int):
+    """(init, advance, finish) of ``sweep_ground_states_stiefel`` on plain
+    tensors, so a caller can start them from any state (the JAX package's
+    included).  ``advance`` takes a precision tier for its steps;
+    ``init`` and ``finish`` run at full float32."""
+    from ..optim.riemann import _project_tangent, isometry_energy_warm
+
+    def loss(V, r, hs, iters):
+        return isometry_energy_warm(V, hs, D, r, iters, "unroll")
+
+    def init(gs, xre, xim, warm=None):
+        """(hs (B, 4, 4) real, V0 (B, 2D, D), M0 = 0, r0 = I/sqrt(D)), B =
+        n restarts, slot 0 of each point from ``warm`` where given."""
+        n = gs.shape[0]
+        hs = tfim_matrix(gs.to(xre))[:, None].expand(n, restarts, 4, 4).reshape(-1, 4, 4)
+        V0, _ = torch.linalg.qr(torch.complex(xre, xim))
+        if warm is not None:
+            V0 = V0.reshape(n, restarts, 2 * D, D)
+            V0 = torch.cat([warm.to(V0)[:, None], V0[:, 1:]], 1).reshape(-1, 2 * D, D)
+        r0 = torch.eye(D, dtype=V0.dtype, device=V0.device) / D ** 0.5
+        return hs, V0, torch.zeros_like(V0), r0.expand(V0.shape[0], D, D)
+
+    def advance(V, M, r, hs, length, precision=None):
+        """``length`` heavy-ball steps on (V, M, r) at ``precision``."""
+        with _matmul_tier(precision):
+            for _ in range(length):
+                with torch.enable_grad():
+                    Vg = V.detach().requires_grad_()
+                    es, r_new = loss(Vg, r, hs, recycle_iters)
+                    # points are independent: the gradient of the sum is
+                    # every point's gradient, and torch's .grad is already
+                    # conj(jax.grad), so sweep.py:696's G.conj() goes
+                    (G,) = torch.autograd.grad(es.sum(), Vg)
+                with torch.no_grad():
+                    M = momentum * M + _project_tangent(V, G)
+                    V = _polar_ns(V - lr * M)
+                    M = _project_tangent(V, M)
+                r = r_new.detach()
+        return V, M, r
+
+    @torch.no_grad()
+    def finish(V, r, hs):
+        """Best of the restarts after a ``final_iters`` refinement:
+        (energies (n,), As (n, 2, D, D), rs (n, D, D))."""
+        es, r = loss(V, r, hs, final_iters)
+        er = es.reshape(-1, restarts)
+        i = torch.argmin(er, dim=1)
+        rows = torch.arange(er.shape[0], device=V.device)
+        Vb = V.reshape(-1, restarts, 2 * D, D)[rows, i]
+        rb = r.reshape(-1, restarts, D, D)[rows, i]
+        return er.min(dim=1).values, Vb.reshape(-1, D, 2, D).transpose(1, 2).contiguous(), rb
+
+    return init, advance, finish
+
+
+def _slot_seed(seed: int, branch: int, slot: int) -> int:
+    return int(np.random.SeedSequence([seed, branch, slot]).generate_state(1, np.uint64)[0])
+
+
+def _nested_restart_normals(seed: int, restarts: int, shape):
+    """(re, im) float64 standard normals of shape (shape[0], restarts,
+    *shape[1:]) on the CPU, slot s drawn from a generator of its own,
+    seeded by (seed, branch, s): slot s's draw depends on (seed, s) only,
+    never on ``restarts``, so restart sets nest and best-of-(k+1) never
+    loses to best-of-k (the counterpart of the JAX package's fold_in
+    keys; the streams differ)."""
+    def draw(branch, s):
+        g = torch.Generator().manual_seed(_slot_seed(seed, branch, s))
+        return torch.randn(shape, generator=g, dtype=torch.float64)
+
+    return tuple(torch.stack([draw(b, s) for s in range(restarts)], 1) for b in (0, 1))
+
+
+def sweep_ground_states_stiefel(gs, D: int, steps: int = 300, lr: float = 0.08, momentum: float = 0.9,
+                                restarts: int = 1, generator: torch.Generator | None = None,
+                                recycle_iters: int | None = None, final_iters: int = 200,
+                                point_chunk: int | None = None, warm_V=None, precision: str | None = None,
+                                polish_steps: int = 0, device=None):
+    """BASELINE config 4 at large D: the phase-diagram sweep by direct
+    Stiefel descent on the (2D, D) MPS isometry.  A step of the whole
+    batch is one backward of the warm-environment energy (batched power
+    matvecs, plain autograd back through them), a tangent projection and
+    a Newton-Schulz polar retraction.
+
+    ``gs`` (n,) couplings; ``generator`` (a CPU ``torch.Generator``, seed
+    0 if None) gives one seed, from which each restart slot draws its
+    starts (``_nested_restart_normals``: slot s's start depends on the
+    seed and s only, and not on ``point_chunk``); ``warm_V`` (n, 2D, D)
+    seeds slot 0 (``grow_isometry``).  ``device`` defaults to gs's for a
+    tensor, else to the card; the working precision follows a tensor gs
+    (float32 -> complex64), else the device (``config.default_dtypes``).
+
+    ``recycle_iters`` (None: 24 below D = 16, 96 from D = 16) is a
+    correctness knob: the descent follows the iters-refined energy, and an
+    environment that cannot keep up with the state's transfer gap lets it
+    exploit the unconverged readout (energies below the ground state).
+
+    ``precision`` / ``polish_steps``: the first ``steps - polish_steps``
+    steps run at ``precision`` (``_matmul_tier``: "default" is one-pass
+    TF32 on the card; "high", "highest" and None full float32), the last
+    ``polish_steps`` (clamped to [0, steps]) and the final
+    ``final_iters`` readout always at full float32.
+
+    ``point_chunk`` bounds the points a descent program takes at once,
+    for memory: None is ``stiefel_point_chunk`` (all points on the CPU;
+    on CUDA half the free memory over the unroll stack's bytes).  Each
+    chunk runs the whole descent; the result does not depend on it.
+
+    Returns (energies (n,), As (n, 2, D, D) left-canonical, rs (n, D, D)
+    the converged environments), the best of ``restarts`` per point.
+    """
+    device = resolve_device(device, gs)
+    cdtype, rdtype = default_dtypes(device, gs if isinstance(gs, torch.Tensor) else None)
+    gs = torch.as_tensor(gs).to(device, rdtype)
+    n = gs.shape[0]
+    if recycle_iters is None:
+        recycle_iters = 24 if D < 16 else 96
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    xre, xim = _nested_restart_normals(seed, restarts, (n, 2 * D, D))
+    if point_chunk is None:
+        point_chunk = stiefel_point_chunk(n, D, restarts, recycle_iters, cdtype, device)
+    polish = min(max(int(polish_steps), 0), steps) if precision else 0
+    init, advance, finish = _stiefel_sweep_programs(D, lr, momentum, restarts, recycle_iters, final_iters)
+
+    outs = []
+    for i in range(0, n, point_chunk):
+        sl = slice(i, i + point_chunk)
+        m = gs[sl].shape[0]
+        warm = None if warm_V is None else torch.as_tensor(warm_V)[sl].to(device, cdtype)
+        hs, V, M, r = init(gs[sl], *(x[sl].reshape(m * restarts, 2 * D, D).to(device, rdtype)
+                                     for x in (xre, xim)), warm)
+        V, M, r = advance(V, M, r, hs, steps - polish, precision)
+        V, M, r = advance(V, M, r, hs, polish)
+        outs.append(finish(V, r, hs))
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
+
+
+@torch.no_grad()
+def sweep_variance_certificates(gs, As, rs, env_iters: int = 40, k: int = 48, restarts: int = 4,
+                                point_chunk: int | None = None, device=None):
+    """Per-point energy-variance certificates of sweep outputs: sigma^2_i
+    = (<H^2> - <H>^2)/N of point i's returned state, H = sum_n h(g_i).
+    Oracle-free: sigma^2 = 0 iff the state is an exact eigenstate, and
+    |E - E_0| <= sigma^2 / gap, so a point stuck in a bad basin or short
+    of convergence is flagged by its own variance.
+
+    As (n, d, D, D) left-canonical tensors and rs (n, D, D) environments,
+    as ``sweep_ground_states_stiefel`` returns them; the environments are
+    refined by ``env_iters`` power matvecs (hermitized, unit Frobenius,
+    then unit trace), then every certificate runs the GMRES tail of
+    ``mps.tdvp.energy_variance_density`` (k, restarts), all points in one
+    batch, or ``point_chunk`` at a time.  Returns (n,) real variances.
+    """
+    from ..mps.tdvp import energy_variance_density
+
+    device = resolve_device(device, As, rs, gs)
+    As = torch.as_tensor(As).to(device)
+    rs = torch.as_tensor(rs).to(device, As.dtype)
+    gs = torch.as_tensor(gs).to(device, As.real.dtype)
+    n = gs.shape[0]
+    Ac = As.conj().resolve_conj()
+
+    def one(sl):
+        A, r = As[sl], rs[sl]
+        for _ in range(env_iters):
+            r = torch.einsum("...sai,...ij,...sbj->...ab", A, r, Ac[sl])
+            r = (r + r.mH) / 2
+            r = r / torch.linalg.matrix_norm(r)[..., None, None]
+        r = r / _trace(r)[..., None, None]
+        return energy_variance_density(A, r, tfim_matrix(gs[sl]).to(A.dtype), env_solver="gmres", k=k,
+                                       restarts=restarts)
+
+    step = point_chunk or n
+    return torch.cat([one(slice(i, i + step)) for i in range(0, n, step)])
+
+
+def grow_isometry(A, eps: float = 1e-3, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Bond-growth warm start in tensor space: embed converged (n, d, D, D)
+    (or one (d, D, D)) left-canonical tensors into (d, 2D, 2D) as the
+    direct sum with an eps-scaled real normal block (drawn from
+    ``generator``, a CPU generator, seed 17 if None), returned as the
+    (2dD, 2D) isometries of ``sweep_ground_states_stiefel``'s ``warm_V``
+    after a 14-step Newton-Schulz polar.  The embedded state reproduces
+    the D state's energy up to O(eps)."""
+    A = torch.as_tensor(A)
+    batched = A.ndim == 4
+    if not batched:
+        A = A[None]
+    B, d, D, _ = A.shape
+    if generator is None:
+        generator = torch.Generator().manual_seed(17)
+    noise = eps * torch.randn((B, d, 2 * D, 2 * D), generator=generator, dtype=torch.float64)
+    A2 = torch.nn.functional.pad(A, (0, D, 0, D)) + noise.to(A.device, A.real.dtype)
+    V = _polar_ns(A2.transpose(1, 2).reshape(B, 2 * D * d, 2 * D), iters=14)
+    return V if batched else V[0]

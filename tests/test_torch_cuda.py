@@ -571,3 +571,40 @@ def test_k6_views_and_lazy_conjugates():
     assert _lib.launches["brickwork_overlap"] == 1 and sum(_lib.launches.values()) == 1
     ref = manifold_overlap_batched(*(t.cpu().resolve_conj().to(torch.complex128) for t in (U1, U2, U1p, U2p, Mr, Ml, W)))
     assert np.abs(to_np(out) - to_np(ref)).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_stiefel_sweep_on_the_card_matches_the_cpu():
+    """The large-D sweep (D = 8, 16 points, 60 steps, float32) on the card
+    against the same sweep in float32 on the CPU, the same starts: energies
+    to 1e-4, both never below exact by 1e-4; no hand kernel launches."""
+    from qmps_torch.ham.exact import tfim_gs_energy_f64
+    from qmps_torch.parallel.sweep import sweep_ground_states_stiefel
+
+    dev = require_cuda()
+    gs = torch.linspace(0.3, 1.7, 16, dtype=torch.float32)
+    _lib.reset_launches()
+    es_c, As_c, _ = sweep_ground_states_stiefel(gs.to(dev), D=8, steps=60)
+    torch.cuda.synchronize()
+    assert not any(_lib.launches.values())
+    es_h, _, _ = sweep_ground_states_stiefel(gs, D=8, steps=60)
+    assert es_c.device.type == "cuda" and As_c.dtype == torch.complex64
+    np.testing.assert_allclose(to_np(es_c), to_np(es_h), atol=1e-4)
+    exact = tfim_gs_energy_f64(to_np(gs).astype(np.float64))
+    assert np.all(to_np(es_c) - exact > -1e-4) and np.all(to_np(es_h) - exact > -1e-4)
+
+
+@pytest.mark.cuda
+def test_matvec_fixed_point_on_the_card_matches_the_cpu():
+    """right_fixed_point(dense=False) in complex64 on the card: lam and r
+    equal the CPU's complex64 run (1e-5, 1e-4) and the dense path's."""
+    from qmps_torch.mps.transfer import right_fixed_point
+
+    dev = require_cuda()
+    A = torch.from_numpy(left_canonical(np.random.default_rng(4), 1, D=16)[0].astype(np.complex64))
+    lam_c, r_c = right_fixed_point(A.to(dev), A.to(dev), dense=False)
+    lam_h, r_h = right_fixed_point(A, A, dense=False)
+    lam_d, r_d = right_fixed_point(A.to(dev), A.to(dev))
+    for lam, r in ((lam_h, r_h), (lam_d, r_d)):
+        assert abs(complex(lam_c) - complex(lam)) < 1e-5
+        np.testing.assert_allclose(to_np(r_c), to_np(r), atol=1e-4)

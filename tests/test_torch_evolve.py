@@ -197,13 +197,17 @@ def test_float32_quench_gap_is_the_method():
 
 
 @pytest.mark.parametrize("entry", ["find_ground_state", "sweep_ground_states_fused", "batched_quench_sweep",
-                                   "MPSTimeEvolve.evolve", "loschmidt_echo_run", "compile_state_to_ansatz"])
+                                   "MPSTimeEvolve.evolve", "loschmidt_echo_run", "compile_state_to_ansatz",
+                                   "sweep_ground_states_stiefel", "sweep_variance_certificates",
+                                   "ground_state_riemannian"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without ``device`` on floats, lists or arrays, an entry point
     asks for the card and, on a machine without one, raises before it
     computes anything on the CPU."""
     from qmps_torch.algorithms.evolve import MPSTimeEvolve, compile_state_to_ansatz, loschmidt_echo_run
-    from qmps_torch.parallel.sweep import sweep_ground_states_fused
+    from qmps_torch.optim.riemann import ground_state_riemannian
+    from qmps_torch.parallel.sweep import (sweep_ground_states_fused, sweep_ground_states_stiefel,
+                                           sweep_variance_certificates)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -215,6 +219,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "loschmidt_echo_run": lambda: loschmidt_echo_run(1.5, 0.2, 0.1, 1, inner_steps=1, gs_steps=1),
         "compile_state_to_ansatz": lambda: compile_state_to_ansatz(np.eye(4)[:, :2].reshape(2, 2, 2).copy(),
                                                                    steps=1),
+        "sweep_ground_states_stiefel": lambda: sweep_ground_states_stiefel([0.5, 1.0], D=4, steps=1),
+        "sweep_variance_certificates": lambda: sweep_variance_certificates(
+            [1.0], np.eye(8)[:, :4].reshape(1, 4, 2, 4).transpose(0, 2, 1, 3), np.eye(4)[None] / 2),
+        "ground_state_riemannian": lambda: ground_state_riemannian(tfim(1.0).to_matrix(), 4, steps=1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -230,7 +238,9 @@ def test_port_never_imports_jax():
             "qmps_torch.utils.checkpoint", "qmps_torch.utils.logging", "qmps_torch.utils.host_eval",
             "qmps_torch.utils.convert", "qmps_torch.core.linalg", "qmps_torch.core.gates",
             "qmps_torch.embed.unitaries", "qmps_torch.circuits.ansatze", "qmps_torch.circuits.brickwork",
-            "qmps_torch.mps.imps", "qmps_torch.ham.hamiltonian", "qmps_torch.objectives.overlap"} <= set(names)
+            "qmps_torch.mps.imps", "qmps_torch.ham.hamiltonian", "qmps_torch.objectives.overlap",
+            "qmps_torch.core.krylov", "qmps_torch.optim.riemann", "qmps_torch.mps.tdvp",
+            "qmps_torch.parallel.sweep"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}: importlib.import_module(m)\n"
