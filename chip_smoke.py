@@ -92,7 +92,8 @@ Phases (any failure exits non-zero, and nothing is caught):
      full float32 and at the "default" tier; ``StiefelSweepConfig`` at
      full width, 1,024 g in [0.1, 2.0] + 1e-3, D = 16 (300 steps, full
      float32) and D = 32 (180 steps, "default" tier, 60-step full tail),
-     each timed after one untimed call, read back in float64 on the host
+     each timed after an untimed call of WARM_STEPS steps, read back in
+     float64 on the host
      (``host_f64_sweep_energies`` in 8 processes, ``readout_f64``) against
      the exact energy: median < 5e-4,
      max < 5e-3, min > -1e-4; the variance certificates of all 1,024 D = 16
@@ -100,7 +101,27 @@ Phases (any failure exits non-zero, and nothing is caught):
      ``right_fixed_point(dense=False)`` against the dense path at D = 16
      (lam 1e-5, r 1e-4); ``LargeDConfig`` (D = 64, 150 steps, the GMRES
      adjoint) within (-1e-4, 5e-3) of exact; one D = 16 descent step of the
-     1,024 points under torch.profiler.
+     1,024 points under torch.profiler; for the sweep points whose float32
+     energy lies below exact (``below_exact_record``): their g, the energy
+     read again at final_iters 200 and 2,000, the environment's residual,
+     and whether a complex64 product takes TF32 after the sweep;
+ 15. the classical uMPS path in float32 (``classical_umps``), no hand
+     kernel (the counters show it): ``vumps_ground_state`` at D = 8 (250
+     iterations, k 32) and ``vumps_ground_state_converged`` at D = 32 and
+     64 (tol 3e-4, chunks of 150 to 600, k 48, GMRES environments), each
+     after an untimed run of WARM_STEPS iterations, timed from a seeded
+     generator, read back in
+     float64 (``host_energy_gauge_free``) against the exact energy (in
+     [-1e-6, 1e-4] at D = 8, [-1e-6, 5e-5] at 32 and 64) with the
+     variance certificate in float32 (bench.py's column) and, of the
+     nearest exact isometry, in float64 by the dense solve (>= -1e-6);
+     MPO-VUMPS at D = 8 against the
+     two-site energy; the D = 8 classical TDVP quench 1.5 -> 0.2 (Euler,
+     1,200 steps, in float32 from a float64 L-BFGS start) against the
+     exact rate (1e-2); the g = 1.5 dispersion
+     against the exact one; one ``vumps_step`` with the dense and the
+     GMRES environments at D = 16, 24 and 32; one D = 64 iteration under
+     torch.profiler.
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
@@ -113,8 +134,10 @@ CUDA cores (67 TFLOP/s) but K7's and K8's products and K6's W product,
 which run on the tensor cores in 3xTF32: three TF32 products each, over
 495 TFLOP/s.
 Prints one JSON line of per-kernel results, the card line, and last
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  Without a card, or run outside a checkout
+(no qmps_torch beside it), it exits 1 and prints no result.
 """
+import dataclasses
 import functools
 import json
 import math
@@ -148,7 +171,24 @@ ECHO_G0, ECHO_G1, ECHO_T, ECHO_STEPS, ECHO_INNER, ECHO_GS = 1.5, 0.2, 0.8, 20, 1
 # LargeDConfig (workloads.py:348-380): D = 64, 150 steps
 STF_POINTS, STF_G = 1024, (0.1, 2.0)
 STF_RUNS = {16: {"steps": 300}, 32: {"steps": 180, "precision": "default", "polish_steps": 60}}
+WARM_STEPS = 10  # the untimed warm-up of the phase-14 sweeps and the phase-15 VUMPS runs
 LARGE_D, LARGE_D_STEPS = 64, 150
+# the classical uMPS path at bench.py's VUMPS rows (bench.py:589-675,
+# :779-786): D = 8 250 iterations (k 32), D = 32 and 64 run to the knee
+# with the GMRES environments; the MPO, trajectory and dispersion checks
+# of tests/test_mpo.py:209-220, tests/test_tdvp_classical.py:62-77 and
+# tests/test_excitations.py:47-57; the dense/GMRES crossover of one
+# vumps_step (k 48)
+VUMPS_DS, VUMPS_D8 = (8, 32, 64), {"iters": 250, "k": 32}
+VUMPS_CONV = {"tol": 3e-4, "chunk_iters": 150, "max_iters": 600, "k": 48, "env_solver": "gmres"}
+TRAJ_G0, TRAJ_G1, TRAJ_T, TRAJ_STEPS, TRAJ_D, TRAJ_GS = 1.5, 0.2, 1.2, 1200, 8, 400
+DISP_G, DISP_D, DISP_ITERS, CROSS_DS = 1.5, 8, 200, (16, 24, 32)
+# gates set from a float32 run of classical_umps on the CPU:
+# MPO-VUMPS's float64 readout 4.1e-10 off the two-site state's; the
+# float32 H_X build 1.5e-4 off the exact dispersion, where a float64 build
+# of the same state reads 2.5e-10 (the float32 mixed gauge's Cholesky
+# jitter, 32 eps)
+MPO_GATE, DISP_GATE = 1e-7, 1e-3
 
 # published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
 # tensor cores, TF32 on the tensor cores (dense), device memory
@@ -665,6 +705,58 @@ def readout_f64(As, rs, gvals, workers=8):
     return e64
 
 
+def below_exact_record(D, gvals, g_dev, exact, As, rs, err32, err64, dev):
+    """For the sweep points whose float32 energy lies below exact: their
+    g, the float32 energy read again from the returned state and
+    environment with the sweep's couplings at ``final_iters`` 200 and
+    2,000 (``isometry_energy_warm``, as ``finish`` reads it, at the matmul
+    precision the sweep left behind), the relative residual |E r - lam r|
+    / |r| of the returned environment, and whether a complex64 product
+    still takes TF32 after the sweep.  Returns the summary line's figures."""
+    from qmps_torch.mps.transfer import right_matvec, transfer_dense
+    from qmps_torch.optim.riemann import isometry_energy_warm
+    from qmps_torch.parallel.sweep import tfim_matrix
+
+    neg = np.nonzero(err32 < 0)[0]
+    g = torch.Generator().manual_seed(0)
+    X, Y = (torch.randn(256, D, D, dtype=torch.complex128, generator=g).to(dev) for _ in range(2))
+    bmm_err = ((X.to(torch.complex64) @ Y.to(torch.complex64)).to(torch.complex128) - X @ Y).abs().max().item()
+    tier = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    print(f"D = {D} after the sweep: float32 matmul precision {tier[0]!r}, allow_tf32 {tier[1]}, a complex64 "
+          f"bmm (256 x {D}x{D}) off complex128 by {bmm_err:.3g}; {neg.size} of {len(gvals)} points below "
+          f"exact in float32")
+    out = {f"stiefel_d{D}_points_below_exact_f32": int(neg.size), f"stiefel_d{D}_bmm_error_after": bmm_err}
+    if not neg.size:
+        return out
+    idx = torch.from_numpy(neg).to(dev)
+    A, r = As[idx], rs[idx]
+    V = A.transpose(1, 2).reshape(-1, 2 * D, D)
+    hs = tfim_matrix(g_dev[idx])  # the sweep's own couplings
+    with torch.no_grad():
+        e200 = isometry_energy_warm(V, hs, D, r, 200, "unroll")[0].double().cpu().numpy() - exact[neg]
+        e2000 = isometry_energy_warm(V, hs, D, r, 2000, "unroll")[0].double().cpu().numpy() - exact[neg]
+        Er = right_matvec(A, A, r)
+        lam = (r.conj() * Er).sum((-2, -1)) / (r.conj() * r).sum((-2, -1))
+        res = (torch.linalg.matrix_norm(Er - lam[:, None, None] * r)
+               / torch.linalg.matrix_norm(r)).double().cpu().numpy()
+    worst = np.argsort(err32[neg])[:8]
+    for i in worst:
+        # the transfer spectrum's top two moduli, in float64 on the host:
+        # how fast a power iteration can converge at all
+        Ai = A[i].cpu().to(torch.complex128)
+        mods = np.sort(np.abs(np.linalg.eigvals(transfer_dense(Ai, Ai).numpy())))
+        print(f"  g {gvals[neg][i]:.6f}: float32 error {err32[neg][i]:.4g} (sweep), {e200[i]:.4g} (200 more "
+              f"iterations), {e2000[i]:.4g} (2,000); float64 readout {err64[neg][i]:.4g}; environment "
+              f"residual {res[i]:.3g}; |lam_2 / lam_1| {mods[-2] / mods[-1]:.6f}")
+    print(f"  all {neg.size}: min float32 error {err32[neg].min():.4g} (sweep), {e200.min():.4g} (200), "
+          f"{e2000.min():.4g} (2,000); median residual {np.median(res):.3g}, max {res.max():.3g}")
+    out.update({f"stiefel_d{D}_below_exact_min_f32": float(err32[neg].min()),
+                f"stiefel_d{D}_below_exact_min_f32_200": float(e200.min()),
+                f"stiefel_d{D}_below_exact_min_f32_2000": float(e2000.min()),
+                f"stiefel_d{D}_below_exact_max_residual": float(res.max())})
+    return out
+
+
 def large_d_path(dev, card):
     """Phase 14: the large-D path on the card, float32, no hand kernel.
     Returns the figures of the summary line."""
@@ -700,7 +792,9 @@ def large_d_path(dev, card):
         ri = 24 if D < 16 else 96  # the sweep's default recycle_iters
         chunk = stiefel_point_chunk(STF_POINTS, D, 1, ri, torch.complex64, dev)
         t0 = time.perf_counter()
-        cfg.sweep(gs)  # the untimed call
+        # the untimed call, cut to WARM_STEPS: PyTorch compiles nothing, so
+        # a short run warms the allocator and the libraries as a whole one
+        dataclasses.replace(cfg, steps=WARM_STEPS, polish_steps=min(cfg.polish_steps, WARM_STEPS // 2)).sweep(gs)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats(dev)
@@ -716,7 +810,7 @@ def large_d_path(dev, card):
         tag = f"stiefel_d{D}"
         print(f"Stiefel sweep D = {D} ({STF_POINTS} points, {cfg.steps} steps, precision {cfg.precision}, polish "
               f"{cfg.polish_steps}, recycle_iters {ri}, point_chunk {chunk} of {STF_POINTS}; {As.dtype}): "
-              f"{dt:.4f} s ({STF_POINTS / dt:.2f} points/s; the untimed call {t_first:.4f} s), peak "
+              f"{dt:.4f} s ({STF_POINTS / dt:.2f} points/s; the untimed {WARM_STEPS} steps {t_first:.4f} s), peak "
               f"{peak:.3f} GiB; float64 readout ({t_read:.2f} s, 8 host processes): median {np.median(err):.4g} "
               f"(< 5e-4), max {err.max():.4g} (< 5e-3), min {err.min():.4g} (> -1e-4); float32 energies: "
               f"median {np.median(err32):.4g}, max {err32.max():.4g}, min {err32.min():.4g} (on {card})")
@@ -726,11 +820,12 @@ def large_d_path(dev, card):
         require(np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-4,
                 f"D = {D} sweep's float64 readout against the exact energy")
         out.update({f"{tag}_seconds": dt, f"{tag}_points_per_second": STF_POINTS / dt,
-                    f"{tag}_first_call_seconds": t_first, f"{tag}_peak_gib": peak, f"{tag}_point_chunk": chunk,
+                    f"{tag}_warm_up_seconds": t_first, f"{tag}_peak_gib": peak, f"{tag}_point_chunk": chunk,
                     f"{tag}_median_error": float(np.median(err)), f"{tag}_max_error": float(err.max()),
                     f"{tag}_min_error": float(err.min()), f"{tag}_median_error_f32": float(np.median(err32)),
                     f"{tag}_max_error_f32": float(err32.max()), f"{tag}_readout_seconds": t_read})
         keep[D] = (gs + 1e-3, As, rs)
+        out.update(below_exact_record(D, gvals, gs + 1e-3, exact, As, rs, err32, err, dev))
 
     # certificates on every point of the smaller D (16)
     D0 = min(STF_RUNS)
@@ -865,9 +960,194 @@ def sass_hmma(lib_path):
     return counts
 
 
+def classical_umps(dev, card, Ds=VUMPS_DS):
+    """Phase 15 on ``dev`` in float32: VUMPS at bench.py's sizes (TFIM g =
+    1), each after an untimed warm-up, read back in float64 on the host;
+    MPO-VUMPS against the two-site energy; the D = 8 Euler trajectory
+    against the exact rate; the dispersion against the exact one; one
+    vumps_step with the dense and the GMRES environments at CROSS_DS; one
+    profiled D = 64 iteration.  No hand kernel, and the counters show it.
+    Returns the figures of the summary line (``Ds`` cuts the VUMPS sizes
+    for a float32 run on the CPU)."""
+    from qmps_torch.algorithms.ground_state import find_ground_state, n_params
+    from qmps_torch.ham.exact import loschmidt_rate, tfim_gs_energy_f64
+    from qmps_torch.ham.hamiltonian import tfim
+    from qmps_torch.kernels import _lib
+    from qmps_torch.mps.excitations import dispersion
+    from qmps_torch.mps.imps import random_tensor
+    from qmps_torch.mps.mpo import mpo_tfim, vumps_ground_state_mpo
+    from qmps_torch.mps.tdvp import (Trajectory, mixed_gauge, variance_certificate, vumps_ground_state,
+                                     vumps_ground_state_converged, vumps_step)
+    from qmps_torch.utils.host_eval import host_energy_gauge_free
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out, states = {}, {}
+    _lib.reset_launches()
+    h32 = np.asarray(tfim(1.0).to_matrix().real, np.float32)  # bench.py's h: complex64 work
+    exact = float(tfim_gs_energy_f64(1.0))
+
+    for D in Ds:
+        if D == 8:
+            def run(gen):
+                AL, _, e, info = vumps_ground_state(h32, D, generator=gen, device=dev, **VUMPS_D8)
+                return AL, e, info, VUMPS_D8["iters"], -1
+        else:
+            def run(gen):
+                AL, _, e, info = vumps_ground_state_converged(h32, D, generator=gen, device=dev, **VUMPS_CONV)
+                return AL, e, info, info["total_iters"], info["iters_to_knee"]
+        t0 = time.perf_counter()
+        # the untimed chunk, cut to WARM_STEPS iterations: bench.py's
+        # compiles its program there, PyTorch only warms its libraries
+        vumps_ground_state(h32, D, iters=WARM_STEPS, k=VUMPS_D8["k"] if D == 8 else VUMPS_CONV["k"],
+                           env_solver="auto" if D == 8 else VUMPS_CONV["env_solver"], device=dev)
+        sync()
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        AL, e, info, total, knee = run(torch.Generator().manual_seed(2))
+        sync()
+        dt = time.perf_counter() - t0
+        grad = float(info["grad_norms"][-1])
+        e64 = host_energy_gauge_free(AL, h32.astype(np.float64), f32_ref=e)
+        # the certificate as bench.py reads it (float32, bench's solver: its
+        # terms cancel to ~1e-5, below which it can read negative) and the
+        # one the gate reads: in float64 on the card, with the dense solve,
+        # of the nearest exact isometry to the state (the certificate
+        # assumes a left-canonical AL, and float32 leaves a ~1e-7 defect;
+        # the upcast state read -1.2e-6 at D = 64 through GMRES)
+        var32 = variance_certificate(AL, h32, env_solver="auto" if D == 8 else "gmres")
+        AL64 = torch.from_numpy(isometry_f64(AL[None].to(torch.complex128).cpu().numpy())[0]).to(dev)
+        var = variance_certificate(AL64, h32.astype(np.float64), env_solver="dense")
+        err, bound = e64 - exact, 1e-4 if D == 8 else 5e-5
+        print(f"VUMPS D = {D} ({AL.dtype} on {AL.device}, k {VUMPS_D8['k'] if D == 8 else VUMPS_CONV['k']}, "
+              f"{'dense' if D <= 24 else 'GMRES'} environments): {total} iterations in {dt:.4f} s "
+              f"({total / dt:.2f} iterations/s; {WARM_STEPS} untimed iterations {t_first:.4f} s), knee {knee}, final "
+              f"gradient {grad:.4g}; float32 energy error {e - exact:.4g}, float64 readout {err:.4g} (in "
+              f"[-1e-6, {bound:g}]), variance {var32:.4g} in float32, {var:.4g} in float64 (>= -1e-6) "
+              f"(on {card})")
+        require(AL.device.type == dev.type and AL.shape == (2, D, D) and math.isfinite(grad) and math.isfinite(var)
+                and math.isfinite(var32) and math.isfinite(err), f"VUMPS D = {D}: finite figures of the expected shape")
+        require(-1e-6 <= err <= bound and var >= -1e-6, f"VUMPS D = {D} against the exact energy")
+        out.update({f"vumps_iters_per_sec_D{D}": total / dt, f"vumps_seconds_D{D}": dt,
+                    f"vumps_warm_up_seconds_D{D}": t_first, f"vumps_energy_error_D{D}": err,
+                    f"vumps_energy_error_f32_D{D}": e - exact, f"vumps_grad_norm_D{D}": grad,
+                    f"vumps_iters_to_knee_D{D}": knee, f"vumps_total_iters_D{D}": total,
+                    f"vumps_variance_f32_D{D}": var32, f"vumps_variance_D{D}": var})
+        states[D] = (AL, e, e64)
+
+    # MPO-VUMPS on the textbook TFIM MPO (mpo_tfim(-g) is ham.tfim(g))
+    t0 = time.perf_counter()
+    A0 = random_tensor(torch.Generator().manual_seed(2), 2, 8, torch.complex64, dev)  # float32 on any device
+    ALm, _, em, infom = vumps_ground_state_mpo(mpo_tfim(-1.0), 8, iters=100, k=24, A0=A0)
+    sync()
+    t_mpo = time.perf_counter() - t0
+    # both states read back in float64: float32 readouts of one state
+    # scatter by ~5e-6 on the card
+    em64 = host_energy_gauge_free(ALm, h32.astype(np.float64), f32_ref=em)
+    d_mpo = em64 - states[8][2]
+    print(f"MPO-VUMPS D = 8 (mpo_tfim(-1), 100 iterations, k 24; {ALm.dtype}): {t_mpo:.4f} s, float32 energy "
+          f"{em:.8f} against the two-site {states[8][1]:.8f}; float64 readouts {em64:.10f} and "
+          f"{states[8][2]:.10f}: |d| {abs(d_mpo):.3g} (< {MPO_GATE:g}), final gradient "
+          f"{float(infom['grad_norms'][-1]):.4g}")
+    require(math.isfinite(em64) and abs(d_mpo) < MPO_GATE, "MPO-VUMPS against the two-site energy")
+    out.update({"mpo_vumps_seconds_D8": t_mpo, "mpo_vumps_energy_difference_D8": d_mpo,
+                "mpo_vumps_energy_difference_f32_D8": em - states[8][1],
+                "mpo_vumps_grad_norm_D8": float(infom["grad_norms"][-1])})
+
+    # the classical TDVP quench 1.5 -> 0.2 from the "suN" ground state
+    t0 = time.perf_counter()
+    # find_ground_state's own seeded start, in float64: in float32 its
+    # L-BFGS stalls at 7.6e-5 above exact (1.1e-5 in float64), and that
+    # start, not the float32 flow, moved a float32 CPU run's rate error to
+    # 8.8e-3 (1.5e-3 from the float64 start); the flow runs in float32
+    p0 = torch.randn(n_params("suN", TRAJ_D), generator=torch.Generator().manual_seed(0), dtype=torch.float64) * 0.5
+    gs0 = find_ground_state(tfim(TRAJ_G0), D=TRAJ_D, ansatz="suN", method="lbfgs", steps=TRAJ_GS,
+                            initial_guess=p0.to(dev))
+    sync()
+    t_gs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    traj = Trajectory(gs0.A.to(torch.complex64), tfim(TRAJ_G1).to_matrix()).eulerint(TRAJ_T, TRAJ_STEPS)
+    rates = -torch.log(traj.loschmidts()).double().cpu().numpy()
+    t_traj = time.perf_counter() - t0
+    ts = np.linspace(TRAJ_T / TRAJ_STEPS, TRAJ_T, TRAJ_STEPS)
+    sel = slice(149, None, 150)
+    err_t = np.abs(rates[sel] - loschmidt_rate(ts[sel], TRAJ_G0, TRAJ_G1)).max()
+    print(f"Trajectory D = {TRAJ_D} ({traj.ALs.dtype} on {traj.ALs.device}): ground state {t_gs:.4f} s "
+          f"({TRAJ_GS} L-BFGS steps, {gs0.A.dtype}, error {gs0.energy - float(tfim_gs_energy_f64(TRAJ_G0)):.4g}), "
+          f"eulerint({TRAJ_T}, {TRAJ_STEPS}) with the echoes {t_traj:.4f} s "
+          f"({TRAJ_STEPS / t_traj:.2f} steps/s); max |rate - exact| {err_t:.4g} (< 1e-2) (on {card})")
+    require(traj.ALs.shape == (TRAJ_STEPS + 1, 2, TRAJ_D, TRAJ_D) and np.all(np.isfinite(rates)),
+            "the trajectory's rates finite, of the expected shape")
+    require(err_t < 1e-2, "the trajectory's rate against the exact rate")
+    out.update({"trajectory_seconds": t_traj, "trajectory_steps_per_second": TRAJ_STEPS / t_traj,
+                "trajectory_ground_state_seconds": t_gs, "trajectory_max_rate_error": float(err_t)})
+
+    # the quasiparticle dispersion against 2 sqrt(1 + g^2 - 2 g cos p)
+    ps = np.linspace(0.0, np.pi, 5)
+    t0 = time.perf_counter()
+    om = dispersion(np.asarray(tfim(DISP_G).to_matrix().real, np.float32), DISP_D, ps, iters=DISP_ITERS,
+                    generator=torch.Generator().manual_seed(2), device=dev)
+    t_disp = time.perf_counter() - t0
+    err_d = np.abs(om[:, 0] - 2.0 * np.sqrt(1.0 + DISP_G ** 2 - 2.0 * DISP_G * np.cos(ps))).max()
+    print(f"dispersion g = {DISP_G}, D = {DISP_D} ({DISP_ITERS} VUMPS iterations, 5 momenta): {t_disp:.4f} s; "
+          f"max |omega - exact| {err_d:.4g} (< {DISP_GATE:g})")
+    require(om.shape == (5, 1) and np.all(np.isfinite(om)) and err_d < DISP_GATE, "the dispersion against exact")
+    out.update({"dispersion_seconds": t_disp, "dispersion_max_error": float(err_d)})
+
+    # one vumps_step with each environment solver: where GMRES wins
+    hc = torch.from_numpy(tfim(1.0).to_matrix()).to(dev, torch.complex64)
+    for D in CROSS_DS:
+        AL, AR, C = mixed_gauge(random_tensor(torch.Generator().manual_seed(D), 2, D, torch.complex64, dev))
+        ms = {}
+        for solver in ("dense", "gmres"):
+            vumps_step(AL, AR, C, hc, VUMPS_CONV["k"], env_solver=solver)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                vumps_step(AL, AR, C, hc, VUMPS_CONV["k"], env_solver=solver)
+            sync()
+            ms[solver] = (time.perf_counter() - t0) * 1e3 / 3
+        print(f"vumps_step D = {D} (k {VUMPS_CONV['k']}): dense environments {ms['dense']:.4f} ms, GMRES "
+              f"{ms['gmres']:.4f} ms (on {card})")
+        out.update({f"vumps_step_ms_dense_D{D}": ms["dense"], f"vumps_step_ms_gmres_D{D}": ms["gmres"]})
+
+    # where a D = 64 iteration's time goes (from a seeded state: the work
+    # of an iteration does not depend on it, and the converged state's
+    # mixed gauge is out of float32's reach, see vumps_ground_state_converged)
+    if cuda and 64 in states:
+        AL, AR, C = mixed_gauge(random_tensor(torch.Generator().manual_seed(64), 2, 64, torch.complex64, dev))
+
+        def step():
+            return vumps_step(AL, AR, C, hc, VUMPS_CONV["k"], env_solver="gmres")
+
+        step()
+        sync()
+        t0 = time.perf_counter()
+        step()
+        sync()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        host, busy, top, ops = device_breakdown(step, 1, host_ops=12)
+        idle = None if busy is None else 1 - busy / step_ms
+        print(f"VUMPS D = 64 iteration (GMRES) under torch.profiler: {step_ms:.4f} ms unprofiled, {host:.4f} "
+              f"profiled; {ops:.0f} device operations; device busy "
+              + ("not measured (no kernel recorded)" if busy is None else
+                 f"{busy:.4f} ms, idle share {idle:.4f}; largest: " + "; ".join(f"{n[:60]} {t:.4f} ms" for n, t in top))
+              + f" (on {card})")
+        out.update({"vumps_step_ms_D64": step_ms, "vumps_device_ops_D64": ops, "vumps_device_idle_share_D64": idle})
+
+    launched = dict(_lib.launches)
+    print(f"phase 15 hand-kernel launches: {launched}")
+    require(not any(launched.values()), "the classical uMPS path launches no hand kernel")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if not (Path(__file__).resolve().parent / "qmps_torch").is_dir():
+        # the script alone, outside a checkout: there is no port to drive
+        print("chip_smoke: no qmps_torch beside this script; run it from the repo's root", file=sys.stderr)
         return 1
     from qmps_torch.algorithms.evolve import batched_quench_sweep
     from qmps_torch.algorithms.ground_state import find_ground_state
@@ -1543,6 +1823,11 @@ def main() -> int:
     large = large_d_path(dev, card)
     print(f"phase 14 in {time.perf_counter() - t14:.1f} s")
 
+    # ---- 15. the classical uMPS path: VUMPS, MPO, trajectory, dispersion ----
+    t15 = time.perf_counter()
+    classical = classical_umps(dev, card)
+    print(f"phase 15 in {time.perf_counter() - t15:.1f} s")
+
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
         "K2": ("energy_fwd", "qmps_torch/csrc/energy_fused.cu", "qmps_tpu/kernels/energy_fused.py:271"),
@@ -1578,7 +1863,7 @@ def main() -> int:
                       **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},
                       **{f"tdvp_d{D}_value_error": e[0] for D, e in big_errs.items()},
                       **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}, **evo,
-                      **large}))
+                      **large, **classical}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

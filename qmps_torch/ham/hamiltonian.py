@@ -3,10 +3,9 @@
 ``Hamiltonian({'ZZ': -1, 'X': g})`` is the TFIM; single-character strings
 are split symmetrically across the bond, as the reference does
 (qmps/ground_state.py:73-80).  Matrices are host numpy complex128; the
-callers move them onto their device and type.  The MPO branch of
-``as_host_matrix`` waits for mps/mpo, and ``Hamiltonian.measure_energy``
-for objectives/sampling (ROADMAP.md, "mps/mpo.py and mps/excitations.py"
-and "The rest").
+callers move them onto their device and type.  ``as_host_matrix`` also
+takes an ``mps.mpo.MPO`` of range <= 2.  ``Hamiltonian.measure_energy``
+waits for objectives/sampling (ROADMAP.md, "The rest").
 """
 from __future__ import annotations
 
@@ -64,9 +63,16 @@ class Hamiltonian:
 
 
 def as_host_matrix(H) -> np.ndarray:
-    """Hamiltonian | tensor | array -> host numpy matrix."""
+    """Hamiltonian | MPO | tensor | array -> host numpy matrix.  An MPO of
+    range <= 2 reduces exactly to its bond matrix (so the circuit-TDVP
+    steppers, whose Trotter gate is two-site, take it); a longer-range one
+    raises there: ``mps.tdvp.Trajectory(A0, h=mpo)`` evolves it."""
+    from ..mps.mpo import MPO  # deferred: the ham layer sits below mps
+
     if isinstance(H, Hamiltonian):
         return H.to_matrix()
+    if isinstance(H, MPO):
+        return H.two_site_matrix()
     if isinstance(H, torch.Tensor):
         return H.detach().cpu().resolve_conj().numpy()
     return np.asarray(H)

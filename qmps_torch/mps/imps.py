@@ -3,10 +3,9 @@
 Random states, the left and right canonical forms (1-site and n-site
 cells), the mixed gauge, Schmidt values, entropy and truncation, one- and
 two-site expectation values, correlators, the correlation length and the
-static structure factor, overlaps, the energy variance (mps/tdvp);
-``Map`` and ``TransferMatrix``.  ``dA_dt`` needs the rest of mps/tdvp
-and waits (ROADMAP.md, "VUMPS").  A tensor A has shape (d, D, D) = (physical, left, right);
-``merge`` is batched over leading dimensions, the rest takes one state.
+static structure factor, overlaps, the energy variance and the TDVP
+tangent ``dA_dt`` (mps/tdvp); ``Map`` and ``TransferMatrix``.  A tensor
+A has shape (d, D, D) = (physical, left, right); ``merge`` is batched over leading dimensions, the rest takes one state.
 
 Every fixed point enters a gauge or an observable rotated to hermitian,
 then hermitized and given unit trace (``_unit_trace_herm``).  A squaring
@@ -294,6 +293,13 @@ class iMPS:
         r = torch.arange(1, max_dist + 1, dtype=Cr.dtype, device=Cr.device)
         p = torch.as_tensor(p, dtype=Cr.dtype, device=Cr.device)
         return (e2 - e1 ** 2) + 2.0 * torch.sum(torch.cos(p[..., None] * r) * Cr, dim=-1)
+
+    def dA_dt(self, h) -> torch.Tensor:
+        """TDVP tangent vector of this state under the two-site Hamiltonian
+        h (the xmps iMPS.dA_dt analogue; ``tdvp.dA_dt``)."""
+        from .tdvp import dA_dt
+
+        return dA_dt(self.blocked, h)
 
     def overlap(self, other: "iMPS") -> torch.Tensor:
         """|<psi_A|psi_B>|^2 per site = |dominant eigenvalue of the mixed

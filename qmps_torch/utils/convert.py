@@ -1,6 +1,7 @@
 """Carrying state across from the JAX package: its arrays (or any numpy
 array-like) become this package's tensors on a chosen device and type;
-its ``EvolveRecord``s and checkpoint trees become this package's."""
+its ``EvolveRecord``s, checkpoint trees, mixed-gauge triples and MPOs
+become this package's."""
 from __future__ import annotations
 
 import numpy as np
@@ -33,3 +34,19 @@ def from_evolve_record(rec, device="cpu", dtype: torch.dtype | None = None):
 
     return EvolveRecord(**{f: from_numpy(getattr(rec, f), device, dtype)
                            for f in ("params", "loschmidt", "evs", "errors")})
+
+
+def from_mixed_gauge(triple, device="cpu", dtype: torch.dtype | None = None):
+    """A mixed-gauge triple (AL, AR, C) of the JAX package (its arrays, or
+    numpy) -> a tuple of three tensors, as ``mps.tdvp.mixed_gauge``
+    returns them."""
+    return tuple(from_numpy(x, device, dtype) for x in triple)
+
+
+def from_mpo(mpo):
+    """The JAX package's ``MPO`` (or anything with a host ``W`` of shape
+    (chi, chi, d, d)) -> ``qmps_torch.mps.mpo.MPO``, with the same checks
+    of its Schur form."""
+    from ..mps.mpo import MPO
+
+    return MPO(np.asarray(mpo.W))

@@ -608,3 +608,32 @@ def test_matvec_fixed_point_on_the_card_matches_the_cpu():
     for lam, r in ((lam_h, r_h), (lam_d, r_d)):
         assert abs(complex(lam_c) - complex(lam)) < 1e-5
         np.testing.assert_allclose(to_np(r_c), to_np(r), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_vumps_on_the_card_matches_the_cpu():
+    """D = 8 VUMPS (TFIM g = 1, 100 iterations, k = 24, complex64) from the
+    same seeded A0 on the card and on the CPU: float32 energies within 1e-5
+    of each other, both states read back in float64 within (-1e-6, 1e-4)
+    of the exact energy, gradient norms below 1e-3; no hand kernel
+    launches."""
+    from qmps_torch.ham.exact import tfim_gs_energy_f64
+    from qmps_torch.mps.imps import random_tensor
+    from qmps_torch.mps.tdvp import vumps_ground_state
+    from qmps_torch.utils.host_eval import host_energy_gauge_free
+
+    dev = require_cuda()
+    A0 = random_tensor(torch.Generator().manual_seed(3), 2, 8, dtype=torch.complex64, device="cpu")
+    h = tfim(1.0).to_matrix()
+    _lib.reset_launches()
+    AL_c, _, e_c, info_c = vumps_ground_state(h, 8, iters=100, A0=A0.to(dev))
+    torch.cuda.synchronize()
+    assert not any(_lib.launches.values())
+    AL_h, _, e_h, info_h = vumps_ground_state(h, 8, iters=100, A0=A0)
+    assert AL_c.device.type == "cuda" and AL_c.dtype == AL_h.dtype == torch.complex64
+    exact = float(tfim_gs_energy_f64(1.0))
+    assert abs(e_c - e_h) < 1e-5, (e_c, e_h)
+    for AL, e, info in ((AL_c, e_c, info_c), (AL_h, e_h, info_h)):
+        e64 = host_energy_gauge_free(AL, h.real, f32_ref=e)
+        assert -1e-6 < e64 - exact < 1e-4, (e64 - exact, e - exact)
+        assert float(info["grad_norms"][-1]) < 1e-3, info["grad_norms"][-5:]

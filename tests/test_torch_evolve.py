@@ -199,12 +199,17 @@ def test_float32_quench_gap_is_the_method():
 @pytest.mark.parametrize("entry", ["find_ground_state", "sweep_ground_states_fused", "batched_quench_sweep",
                                    "MPSTimeEvolve.evolve", "loschmidt_echo_run", "compile_state_to_ansatz",
                                    "sweep_ground_states_stiefel", "sweep_variance_certificates",
-                                   "ground_state_riemannian"])
+                                   "ground_state_riemannian", "vumps_ground_state",
+                                   "vumps_ground_state_converged", "vumps_ground_state_mpo",
+                                   "variance_certificate", "Trajectory", "dispersion"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without ``device`` on floats, lists or arrays, an entry point
     asks for the card and, on a machine without one, raises before it
     computes anything on the CPU."""
     from qmps_torch.algorithms.evolve import MPSTimeEvolve, compile_state_to_ansatz, loschmidt_echo_run
+    from qmps_torch.mps import tdvp
+    from qmps_torch.mps.excitations import dispersion
+    from qmps_torch.mps.mpo import mpo_tfim, vumps_ground_state_mpo
     from qmps_torch.optim.riemann import ground_state_riemannian
     from qmps_torch.parallel.sweep import (sweep_ground_states_fused, sweep_ground_states_stiefel,
                                            sweep_variance_certificates)
@@ -223,6 +228,14 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "sweep_variance_certificates": lambda: sweep_variance_certificates(
             [1.0], np.eye(8)[:, :4].reshape(1, 4, 2, 4).transpose(0, 2, 1, 3), np.eye(4)[None] / 2),
         "ground_state_riemannian": lambda: ground_state_riemannian(tfim(1.0).to_matrix(), 4, steps=1),
+        "vumps_ground_state": lambda: tdvp.vumps_ground_state(tfim(1.0).to_matrix(), 4, iters=1),
+        "vumps_ground_state_converged": lambda: tdvp.vumps_ground_state_converged(tfim(1.0), 4, chunk_iters=1,
+                                                                                  max_iters=1),
+        "vumps_ground_state_mpo": lambda: vumps_ground_state_mpo(mpo_tfim(1.0), 4, iters=1),
+        "variance_certificate": lambda: tdvp.variance_certificate(
+            np.eye(4)[:, :2].reshape(2, 2, 2).copy(), tfim(1.0).to_matrix()),
+        "Trajectory": lambda: tdvp.Trajectory(np.ones((2, 2, 2)), tfim(0.5)).eulerint(0.1, 1),
+        "dispersion": lambda: dispersion(tfim(1.5).to_matrix(), 4, [0.0], iters=1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -240,7 +253,8 @@ def test_port_never_imports_jax():
             "qmps_torch.embed.unitaries", "qmps_torch.circuits.ansatze", "qmps_torch.circuits.brickwork",
             "qmps_torch.mps.imps", "qmps_torch.ham.hamiltonian", "qmps_torch.objectives.overlap",
             "qmps_torch.core.krylov", "qmps_torch.optim.riemann", "qmps_torch.mps.tdvp",
-            "qmps_torch.parallel.sweep"} <= set(names)
+            "qmps_torch.parallel.sweep", "qmps_torch.mps.mpo", "qmps_torch.mps.excitations",
+            "qmps_torch.ham.exact", "qmps_torch.ham.classical_baselines"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}: importlib.import_module(m)\n"

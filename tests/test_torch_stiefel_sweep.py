@@ -183,6 +183,34 @@ def test_point_chunk_rule_counts_the_saved_tensors():
     assert tsw.stiefel_point_chunk(1024, 32, 1, 96, torch.complex64, "cpu") == 1024
 
 
+def test_unconverged_readout_can_read_below_exact():
+    """The sweep's energies are a fixed-count warm power readout
+    (recycle_iters in the descent, final_iters at the end), and a descent
+    that follows an unconverged readout reaches states whose transfer
+    spectrum is near-degenerate (|lam_2/lam_1| > 0.9998 here), where that
+    readout can lie below the exact energy: the method's, in float64 as in
+    float32 (ROADMAP.md section 3; chip_smoke.py phase 14 saw two of 1,024
+    D = 32 points up to 4.19e-4 below exact on the card).  At D = 8,
+    recycle_iters 4, final_iters 8, the g = 1 point reads 6.2e-3 below
+    exact; a 2,000-iteration readout and the host float64 readout of the
+    same state lie above it."""
+    from qmps_torch.mps.transfer import transfer_dense
+    from qmps_torch.utils.host_eval import host_f64_sweep_energies, tfim_h64_batch
+
+    gs = torch.tensor([0.97, 0.99, 1.0, 1.01, 1.03], dtype=torch.float64)
+    es, As, rs = tsw.sweep_ground_states_stiefel(gs, D=8, steps=200, recycle_iters=4, final_iters=8)
+    exact = tfim_gs_energy_f64(to_np(gs))
+    i = int(np.argmin(to_np(es) - exact))
+    assert to_np(es)[i] - exact[i] < -1e-3
+    A = As[i]
+    mods = np.sort(np.abs(np.linalg.eigvals(to_np(transfer_dense(A, A)))))
+    assert mods[-2] / mods[-1] > 0.9998
+    V = As.transpose(1, 2).reshape(-1, 16, 8)
+    deep = to_np(isometry_energy_warm(V, tsw.tfim_matrix(gs), 8, rs, 2000, "unroll")[0])
+    e64 = host_f64_sweep_energies(to_np(As), to_np(rs), tfim_h64_batch(to_np(gs)))[0]
+    assert deep[i] > exact[i] and np.all(e64 > exact)
+
+
 @pytest.mark.slow
 def test_stiefel_restarts_pick_best_basin():
     gv = np.linspace(0.2, 2.0, 6)
