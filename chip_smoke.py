@@ -121,7 +121,22 @@ Phases (any failure exits non-zero, and nothing is caught):
      exact rate (1e-2); the g = 1.5 dispersion
      against the exact one; one ``vumps_step`` with the dense and the
      GMRES environments at D = 16, 24 and 32; one D = 64 iteration under
-     torch.profiler.
+     torch.profiler;
+ 16. the chart sweeps and deep brickwork in float32
+     (``sweeps_and_deep_brickwork``), no hand kernel (the counters show
+     it), each after an untimed call of WARM_STEPS steps and read back in
+     float64 on the host from its returned parameters: (a) bench.py's
+     `sweep` row, sweep_ground_states D = 2 "suN", 1,024 g in [0.1, 2.0] +
+     1e-3, 300 steps, 4 restarts, 1 refine pass (median < 5e-4, max <
+     5e-3, min > -1e-6); (b) its `sweep_deep_bw` row, SweepConfig D = 8
+     "deep_bw", 1,024 points, 300 steps, 2 refine passes, recycled (the
+     same gates, and the float32 minimum printed); (c)
+     DeepBrickworkConfig(D = 32, 300 steps, seed 1), host_energy_gauge_free
+     within (-1e-6, 5e-3) of exact, with its variance certificate (GMRES
+     environments); (d) GrownSweepConfig, 256 points, D 2 -> 16, 300 steps
+     (max < 5e-3, min > -1e-6); (e) one "deep_bw" descent step of the
+     1,024 points at D = 8 and D = 16 under torch.profiler (step time,
+     device operations, idle share).
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
@@ -137,6 +152,7 @@ Prints one JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.  Without a card, or run outside a checkout
 (no qmps_torch beside it), it exits 1 and prints no result.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -183,6 +199,12 @@ VUMPS_DS, VUMPS_D8 = (8, 32, 64), {"iters": 250, "k": 32}
 VUMPS_CONV = {"tol": 3e-4, "chunk_iters": 150, "max_iters": 600, "k": 48, "env_solver": "gmres"}
 TRAJ_G0, TRAJ_G1, TRAJ_T, TRAJ_STEPS, TRAJ_D, TRAJ_GS = 1.5, 0.2, 1.2, 1200, 8, 400
 DISP_G, DISP_D, DISP_ITERS, CROSS_DS = 1.5, 8, 200, (16, 24, 32)
+# phase 16: bench.py's `sweep` row (bench.py:229-270: D = 2 "suN", 4
+# restarts, 1 refine pass) and `sweep_deep_bw` row (:348-378: D = 8
+# "deep_bw", 2 refine passes) at 1,024 g in [0.1, 2.0] + 1e-3, 300 steps;
+# DeepBrickworkConfig(D = 32, 300 steps, seed 1; workloads.py:388-414);
+# GrownSweepConfig (workloads.py:174-215: 256 points, D 2 -> 16, 300 steps)
+SW_POINTS, SW_STEPS, SW_RESTARTS, SW_DBW_D, DBW_D, GROWN_POINTS = 1024, 300, 4, 8, 32, 256
 # gates set from a float32 run of classical_umps on the CPU:
 # MPO-VUMPS's float64 readout 4.1e-10 off the two-site state's; the
 # float32 H_X build 1.5e-4 off the exact dispersion, where a float64 build
@@ -674,34 +696,47 @@ def _readout_part(As, rs, hs):
     return host_f64_sweep_energies(As, rs, hs)[0]
 
 
-def readout_f64(As, rs, gvals, workers=8):
-    """Float64 energies of a sweep's returned states on the host:
-    ``host_f64_sweep_energies`` over ``workers`` spawned processes, point i
-    to worker i mod workers (near-critical points, whose ARPACK tail is
-    the cost, lie together on the grid).  Each point's readout depends on
-    its own state only, so the result is the one call's."""
+def _import_readout():
+    import qmps_torch.utils.host_eval  # noqa: F401
+
+
+@contextlib.contextmanager
+def host_pool(workers=8):
+    """``workers`` spawned processes for the float64 readouts, one BLAS
+    thread each (read at their numpy import); each starts importing the
+    readout at once, so a readout later in the phase pays no start-up."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
 
-    from qmps_torch.utils.host_eval import device_to_host_c128, tfim_h64_batch
-
-    A, r, h = device_to_host_c128(As), device_to_host_c128(rs), tfim_h64_batch(gvals)
     threads = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
-    os.environ.update(dict.fromkeys(threads, "1"))  # one BLAS thread a worker, read at its numpy import
+    os.environ.update(dict.fromkeys(threads, "1"))
     try:
         with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-            parts = [pool.submit(_readout_part, A[k::workers], r[k::workers], h[k::workers])
-                     for k in range(workers)]
-            e64 = np.empty(len(gvals))
-            for k, part in enumerate(parts):
-                e64[k::workers] = part.result()
+            warm = [pool.submit(_import_readout) for _ in range(workers)]
+            yield pool
+            for f in warm:
+                f.result()
     finally:
         for k, v in threads.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def readout_f64(As, rs, gvals, pool, parts=8):
+    """Float64 energies of a sweep's returned states on the host:
+    ``host_f64_sweep_energies`` over ``pool``'s processes (a
+    ``host_pool``), point i to part i mod parts (near-critical points,
+    whose ARPACK tail is the cost, lie together on the grid)."""
+    from qmps_torch.utils.host_eval import device_to_host_c128, tfim_h64_batch
+
+    A, r, h = device_to_host_c128(As), device_to_host_c128(rs), tfim_h64_batch(gvals)
+    futures = [pool.submit(_readout_part, A[k::parts], r[k::parts], h[k::parts]) for k in range(parts)]
+    e64 = np.empty(len(gvals))
+    for k, f in enumerate(futures):
+        e64[k::parts] = f.result()
     return e64
 
 
@@ -757,8 +792,9 @@ def below_exact_record(D, gvals, g_dev, exact, As, rs, err32, err64, dev):
     return out
 
 
-def large_d_path(dev, card):
-    """Phase 14: the large-D path on the card, float32, no hand kernel.
+def large_d_path(dev, card, pool):
+    """Phase 14: the large-D path on the card, float32, no hand kernel;
+    the sweeps read back in float64 on ``pool`` (a ``host_pool``).
     Returns the figures of the summary line."""
     from qmps_torch.ham.exact import tfim_gs_energy_f64
     from qmps_torch.kernels import _lib
@@ -805,7 +841,7 @@ def large_d_path(dev, card):
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         err32 = es.double().cpu().numpy() - exact
         t0 = time.perf_counter()
-        err = readout_f64(As, rs, gvals) - exact
+        err = readout_f64(As, rs, gvals, pool) - exact
         t_read = time.perf_counter() - t0
         tag = f"stiefel_d{D}"
         print(f"Stiefel sweep D = {D} ({STF_POINTS} points, {cfg.steps} steps, precision {cfg.precision}, polish "
@@ -1138,6 +1174,174 @@ def classical_umps(dev, card, Ds=VUMPS_DS):
     launched = dict(_lib.launches)
     print(f"phase 15 hand-kernel launches: {launched}")
     require(not any(launched.values()), "the classical uMPS path launches no hand kernel")
+    return out
+
+
+def sweep_readout(D, ansatz, ps, gvals, pool):
+    """Float64 energies of a chart sweep's returned parameters: each state
+    rebuilt from its parameters in complex128 on the host, read by
+    ``readout_f64`` on ``pool`` from identity environments."""
+    from qmps_torch.embed.unitaries import unitary_to_tensor
+    from qmps_torch.parallel.sweep import _sweep_ansatz
+
+    build, _ = _sweep_ansatz(ansatz, D)
+    with torch.no_grad():
+        As = unitary_to_tensor(build(ps.detach().cpu().double()))
+    rs = torch.eye(D, dtype=torch.complex128).expand(len(gvals), D, D) / D ** 0.5
+    return readout_f64(As, rs, gvals, pool)
+
+
+def chart_step(D, n, dev):
+    """One descent step of a "deep_bw" sweep of n points at D as the sweep
+    runs it (the recycled energy of 24 warm matvecs, its backward, one
+    fused adam update), from seeded starts; returns the step as a function."""
+    from qmps_torch.parallel.sweep import _recycled_loss_env, _sweep_ansatz, tfim_matrix
+
+    build, k = _sweep_ansatz("deep_bw", D)
+    loss_env = _recycled_loss_env(build, D)
+    gs = torch.linspace(0.1, 2.0, n, dtype=torch.float64).to(dev, torch.float32)
+    hs = tfim_matrix(gs)
+    x = (torch.randn(n, k, generator=torch.Generator().manual_seed(D), dtype=torch.float64) * 0.5).to(dev,
+                                                                                                     torch.float32)
+    x.requires_grad_()
+    opt = torch.optim.Adam([x], lr=0.05, fused=dev.type == "cuda")
+    r = (torch.eye(D, dtype=torch.complex64, device=dev) / D ** 0.5).expand(n, D, D)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        v, _ = loss_env(hs, x, r, 24)
+        v.sum().backward()
+        opt.step()
+
+    return step
+
+
+def sweeps_and_deep_brickwork(dev, card, pool, points=SW_POINTS, steps=SW_STEPS, grown_points=GROWN_POINTS,
+                              dbw_D=DBW_D, grown_D=16):
+    """Phase 16 on ``dev`` in float32: the chart sweeps (bench.py's `sweep`
+    and `sweep_deep_bw` rows, GrownSweepConfig) and DeepBrickworkConfig,
+    each after an untimed call of WARM_STEPS steps, read back in float64
+    on the host (``pool``, a ``host_pool``); one "deep_bw" descent step of
+    the sweep's batch at D = 8 and D = 16 under torch.profiler.  No hand
+    kernel, and the counters show it.  Returns the figures of the summary
+    line (the arguments cut the sizes for a rehearsal on the CPU)."""
+    from qmps_torch.algorithms import ground_state_deep_brickwork
+    from qmps_torch.ham.exact import tfim_gs_energy_f64
+    from qmps_torch.ham.hamiltonian import tfim
+    from qmps_torch.kernels import _lib
+    from qmps_torch.mps.tdvp import variance_certificate
+    from qmps_torch.parallel import sweep_ground_states
+    from qmps_torch.utils.host_eval import host_energy_gauge_free
+    from qmps_torch.workloads import DeepBrickworkConfig, GrownSweepConfig, SweepConfig
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    _lib.reset_launches()
+
+    def timed_sweep(tag, run, n, D, ansatz, gate_median):
+        """run(gs, steps) untimed at WARM_STEPS on the grid, then timed at
+        full steps on grid + 1e-3; gates on the float64 readout."""
+        gs = torch.linspace(0.1, 2.0, n, dtype=torch.float64).to(dev, torch.float32)
+        t0 = time.perf_counter()
+        run(gs, WARM_STEPS)
+        sync()
+        t_warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        es, ps = run(gs + 1e-3, steps)
+        sync()
+        dt = time.perf_counter() - t0
+        gvals = np.linspace(0.1, 2.0, n) + 1e-3
+        exact = tfim_gs_energy_f64(gvals)
+        err32 = es.double().cpu().numpy() - exact
+        t0 = time.perf_counter()
+        err = sweep_readout(D, ansatz, ps, gvals, pool) - exact
+        t_read = time.perf_counter() - t0
+        print(f"{tag} ({n} points, D = {D} {ansatz!r}, {steps} steps; {ps.dtype}): {dt:.4f} s ({n / dt:.2f} "
+              f"points/s; the untimed {WARM_STEPS} steps {t_warm:.4f} s); float64 readout ({t_read:.2f} s): "
+              f"median {np.median(err):.4g}" + (" (< 5e-4)" if gate_median else "") + f", max {err.max():.4g} "
+              f"(< 5e-3), min {err.min():.4g} (> -1e-6); float32 energies: median {np.median(err32):.4g}, max "
+              f"{err32.max():.4g}, min {err32.min():.4g} (on {card})", flush=True)
+        require(es.shape == (n,) and ps.shape[0] == n and np.all(np.isfinite(err)) and np.all(np.isfinite(err32)),
+                f"{tag}: finite energies of the expected shapes")
+        require((not gate_median or np.median(err) < 5e-4) and err.max() < 5e-3 and err.min() > -1e-6,
+                f"{tag}'s float64 readout against the exact energy")
+        out.update({f"{tag}_seconds": dt, f"{tag}_points_per_second": n / dt, f"{tag}_warm_up_seconds": t_warm,
+                    f"{tag}_median_error": float(np.median(err)), f"{tag}_max_error": float(err.max()),
+                    f"{tag}_min_error": float(err.min()), f"{tag}_median_error_f32": float(np.median(err32)),
+                    f"{tag}_max_error_f32": float(err32.max()), f"{tag}_min_error_f32": float(err32.min()),
+                    f"{tag}_readout_seconds": t_read})
+
+    # (a) bench.py's `sweep` row
+    timed_sweep("sweep_suN_d2",
+                lambda gs, n: sweep_ground_states(gs, D=2, steps=n, restarts=SW_RESTARTS, refine_passes=1),
+                points, 2, "suN", True)
+    # (b) bench.py's `sweep_deep_bw` row, through SweepConfig
+    cfg = SweepConfig(n_points=points, D=SW_DBW_D, steps=steps, ansatz="deep_bw", refine_passes=2, device=str(dev))
+    timed_sweep(f"sweep_deep_bw_d{SW_DBW_D}", lambda gs, n: dataclasses.replace(cfg, steps=n).sweep(gs),
+                points, SW_DBW_D, "deep_bw", True)
+
+    # (c) DeepBrickworkConfig: the untimed call through the config, the
+    # timed one its workload, with the state kept for the readout
+    cfg = DeepBrickworkConfig(D=dbw_D, steps=steps, device=str(dev))
+    t0 = time.perf_counter()
+    dataclasses.replace(cfg, steps=WARM_STEPS).run()
+    sync()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = ground_state_deep_brickwork(tfim(cfg.g), D=cfg.D, steps=cfg.steps,
+                                      generator=torch.Generator().manual_seed(1), device=dev)
+    sync()
+    dt = time.perf_counter() - t0
+    exact = float(tfim_gs_energy_f64(cfg.g))
+    h = tfim(cfg.g).to_matrix().real
+    e64 = host_energy_gauge_free(res.A, np.asarray(h, np.float64), f32_ref=res.energy)
+    t0 = time.perf_counter()
+    var = variance_certificate(res.A, np.asarray(h, np.float32), env_solver="gmres")  # bench.py:513-519, D > 24
+    t_var = time.perf_counter() - t0
+    tag = f"deep_bw_gs_d{dbw_D}"
+    print(f"DeepBrickworkConfig(D = {dbw_D}, {cfg.steps} steps, seed 1, {res.params.numel()} parameters; "
+          f"{res.A.dtype}): {dt:.4f} s ({cfg.steps / dt:.2f} steps/s; the untimed {WARM_STEPS} steps "
+          f"{t_warm:.4f} s); float64 readout error {e64 - exact:.4g} (in (-1e-6, 5e-3)), float32 "
+          f"{res.energy - exact:.4g}; variance certificate (GMRES environments, {t_var:.2f} s) {var:.4g} "
+          f"(on {card})", flush=True)
+    require(math.isfinite(e64) and -1e-6 < e64 - exact < 5e-3 and bool(torch.isfinite(res.history).all()),
+            "DeepBrickworkConfig's float64 readout against the exact energy")
+    out.update({f"{tag}_seconds": dt, f"{tag}_steps_per_second": cfg.steps / dt, f"{tag}_error": e64 - exact,
+                f"{tag}_error_f32": res.energy - exact, f"{tag}_variance": var})
+
+    # (d) GrownSweepConfig: D 2 -> 16 (max and min gated)
+    cfg = GrownSweepConfig(n_points=grown_points, D=grown_D, steps=steps, device=str(dev))
+    timed_sweep(f"grown_sweep_d{grown_D}", lambda gs, n: dataclasses.replace(cfg, steps=n).sweep(gs),
+                grown_points, grown_D, "suN", False)
+
+    # (e) one "deep_bw" descent step of the sweep's batch at D = 8 and 16,
+    # timed as the mean of five (one step's host clock once read 3x high)
+    for D in (SW_DBW_D, 16):
+        step = chart_step(D, points, dev)
+        step()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        sync()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 5
+        if not cuda:
+            print(f"deep_bw descent step D = {D} ({points} points): {step_ms:.4f} ms on the CPU")
+            continue
+        host, busy, top, ops = device_breakdown(step, 1, host_ops=10 if D == 16 else 0)
+        idle = None if busy is None else 1 - busy / step_ms
+        print(f"deep_bw descent step D = {D} ({points} points) under torch.profiler: {step_ms:.4f} ms "
+              f"unprofiled (a mean of 5), {host:.4f} profiled; {ops:.0f} device operations a step; device busy "
+              + ("not measured (no kernel recorded)" if busy is None else
+                 f"{busy:.4f} ms, idle share {idle:.4f}; largest: "
+                 + "; ".join(f"{n[:60]} {t:.4f} ms" for n, t in top)) + f" (on {card})")
+        out.update({f"deep_bw_d{D}_step_ms": step_ms, f"deep_bw_d{D}_step_device_ops": ops,
+                    f"deep_bw_d{D}_step_idle_share": idle})
+
+    launched = dict(_lib.launches)
+    print(f"phase 16 hand-kernel launches: {launched}")
+    require(not any(launched.values()), "the chart sweeps and the deep brickwork launch no hand kernel")
     return out
 
 
@@ -1818,15 +2022,23 @@ def main() -> int:
              + "; ".join(f"{n[:60]} {t / 50:.5f} ms" for n, t in top13)) + f" (on {card})")
     print(f"phase 13 in {time.perf_counter() - t13:.1f} s")
 
-    # ---- 14. the large-D path: Krylov, the Stiefel sweeps, certificates ----
-    t14 = time.perf_counter()
-    large = large_d_path(dev, card)
-    print(f"phase 14 in {time.perf_counter() - t14:.1f} s")
+    # the float64 readouts' processes of phases 14 and 16, started while
+    # the card runs phase 14's first sweep
+    with host_pool() as pool:
+        # ---- 14. the large-D path: Krylov, the Stiefel sweeps, certificates ----
+        t14 = time.perf_counter()
+        large = large_d_path(dev, card, pool)
+        print(f"phase 14 in {time.perf_counter() - t14:.1f} s")
 
-    # ---- 15. the classical uMPS path: VUMPS, MPO, trajectory, dispersion ----
-    t15 = time.perf_counter()
-    classical = classical_umps(dev, card)
-    print(f"phase 15 in {time.perf_counter() - t15:.1f} s")
+        # ---- 15. the classical uMPS path: VUMPS, MPO, trajectory, dispersion ----
+        t15 = time.perf_counter()
+        classical = classical_umps(dev, card)
+        print(f"phase 15 in {time.perf_counter() - t15:.1f} s")
+
+        # ---- 16. the chart sweeps, deep brickwork, the grown sweep ----
+        t16 = time.perf_counter()
+        charts = sweeps_and_deep_brickwork(dev, card, pool)
+        print(f"phase 16 in {time.perf_counter() - t16:.1f} s")
 
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
@@ -1863,7 +2075,7 @@ def main() -> int:
                       **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},
                       **{f"tdvp_d{D}_value_error": e[0] for D, e in big_errs.items()},
                       **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}, **evo,
-                      **large, **classical}))
+                      **large, **classical, **charts}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

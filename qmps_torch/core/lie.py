@@ -18,7 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .gates import CNOT, SWAP, _angle, complex_type, ry, rz
+from .gates import CNOT, SWAP, _angle, complex_type, rotations
 
 
 @lru_cache(maxsize=None)
@@ -108,18 +108,29 @@ def U2f(a, b, c, d) -> torch.Tensor:
     ], -2)
 
 
+def _kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kronecker product of (..., 2, 2) with (..., 2, 2) -> (..., 4, 4),
+    broadcast over the leading dimensions (``torch.kron`` takes none: it
+    would multiply the batch dimensions too)."""
+    out = a[..., :, None, :, None] * b[..., None, :, None, :]
+    return out.reshape(out.shape[:-4] + (4, 4))
+
+
 def U4_kak(p) -> torch.Tensor:
     """19-param U(4), KAK-style: 4 local U(2)s, 3 CNOTs and 3 rotations
-    between them (unitary_param.py:110-120)."""
+    between them (unitary_param.py:110-120); p (..., 19) -> (..., 4, 4)."""
     p = _angle(p)
     ct = complex_type(p)
     c0 = CNOT.to(p.device, ct)
     c1 = SWAP.to(p.device, ct) @ c0 @ SWAP.to(p.device, ct)  # control on qubit 1
-    u1, u2, u3, u4 = (U2f(*(p[..., 4 * k + j] for j in range(4))) for k in range(4))
-    kron = torch.kron
+    # the four U(2)s and the three rotations each in one batched call (the
+    # sweeps build every brick of a wall forward and backward each step)
+    u = U2f(*p[..., :16].reshape(p.shape[:-1] + (4, 4)).unbind(-1))  # (..., 4, 2, 2): u1 .. u4
+    r = rotations(p[..., 16:], "yyz")
     eye = torch.eye(2, dtype=ct, device=p.device)
-    return (kron(u3, u4) @ c0) @ kron(ry(p[..., 16]), eye) @ (c1 @ kron(ry(p[..., 17]), rz(p[..., 18]))) \
-        @ (c0 @ kron(u1, u2))
+    pair = _kron(u[..., 0::2, :, :], u[..., 1::2, :, :])  # kron(u1, u2), kron(u3, u4)
+    return (pair[..., 1, :, :] @ c0) @ _kron(r[..., 0, :, :], eye) @ (c1 @ _kron(r[..., 1, :, :], r[..., 2, :, :])) \
+        @ (c0 @ pair[..., 0, :, :])
 
 
 def U4_state(p) -> torch.Tensor:

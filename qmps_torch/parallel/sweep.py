@@ -1,7 +1,16 @@
 """Phase-diagram sweeps (counterpart of ``qmps_tpu.parallel.sweep``).
 
 A sweep is one batch: every point and every restart is one row of the
-isometry batch, optimized together.
+batch, optimized together.
+- The chart sweeps (``sweep_ground_states``): adam over the parameters
+  of a state ansatz ("suN", "deep_bw", "full15" or a shallow circuit),
+  the summed energy of the batch descended by one fused adam (each row's
+  gradient is its own point's, and adam is elementwise, as the JAX
+  package's vmap of optax's is); environment recycling from D = 4; the
+  adiabatic-continuation refine passes.  ``sweep_ground_states_grown``
+  climbs D_start -> D through the su(N) embedding;
+  ``multi_start_ground_state`` and ``phase_diagram_sweep`` are built on
+  them.
 - D = 2 (``sweep_ground_states_fused``): the fused energy objective
   (kernels/energy_fused.py) evaluates the whole batch's energies and
   gradients in one forward and one backward launch per step.
@@ -11,8 +20,8 @@ isometry batch, optimized together.
   all batched PyTorch products, as the JAX package runs it with XLA and
   no Pallas kernel; ``sweep_variance_certificates`` reads each returned
   state's energy variance, and ``grow_isometry`` embeds a D state into 2D.
-The JAX package's ``mesh`` (one card here) and scan-length ``chunk``
-(a TPU compile workaround) have no counterpart.
+The JAX package's ``mesh`` (one card here), its program caches and
+scan-length ``chunk`` (TPU compile workarounds) have no counterpart.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import default_dtypes, resolve_device
+from ..core.gates import complex_type
 from ..core.linalg import _trace
 from ..core.paulis import I2, X, Z
 from ..kernels.energy_fused import energy_objective_fused
@@ -33,6 +43,329 @@ def tfim_matrix(g: torch.Tensor) -> torch.Tensor:
     zz = torch.kron(Z, Z).real.to(g)
     xx = (torch.kron(X, I2) + torch.kron(I2, X)).real.to(g)
     return -zz + g[..., None, None] / 2.0 * xx
+
+
+# ---------------------------------------------------------------------------
+# The chart sweeps (qmps_tpu/parallel/sweep.py:28-408, :976-1018)
+# ---------------------------------------------------------------------------
+
+
+def _sweep_ansatz(ansatz: str, D: int):
+    """(build, n_params): build maps (..., n_params) parameters to
+    (..., 2D, 2D) state unitaries."""
+    from ..circuits import ansatze
+
+    if ansatz == "suN":
+        return (lambda p: ansatze.full_state_suN(p, D)), (2 * D) ** 2 - 1
+    if ansatz == "deep_bw":
+        # depth-(n+1) wall of SU(4) KAK bricks: ~depth*n*19 parameters
+        # instead of (2D)^2 (circuits/brickwork_deep.py)
+        from ..circuits.brickwork_deep import _n_qubits, brick_wall_unitary, n_brick_params
+
+        nq = _n_qubits(D)
+        return (lambda p: brick_wall_unitary(p, nq, nq + 1)), n_brick_params(nq, nq + 1)
+    if ansatz == "full15":
+        return ansatze.shallow_full_state, 15
+    builder = ansatze.STATE_ANSATZE[ansatz]
+    return (lambda p: builder(D, p)), 2 * 2  # depth-2 default for shallow families
+
+
+def _recycled_loss_env(build, D: int):
+    """(hs, p, r, iters) -> (energies, r_new) with the warm fixed point and
+    plain autograd back through its iterations ("unroll": the LU adjoint
+    builds a (D^2+1)^2 system per row), shared by the recycled optimizer
+    and the refine passes' evaluator, so both read energies from the same
+    solve."""
+    from ..embed.unitaries import unitary_to_tensor
+    from ..optim.riemann import isometry_energy_warm
+
+    def loss_env(hs, p, r, iters):
+        A = unitary_to_tensor(build(p))
+        V = A.transpose(-3, -2).reshape(A.shape[:-3] + (2 * D, D))  # rows (i, s)
+        return isometry_energy_warm(V, hs, D, r, iters, "unroll")
+
+    return loss_env
+
+
+def _chart_programs(build, D: int, steps: int, lr: float, recycle: bool, recycle_iters: int = 24,
+                    final_iters: int = 200):
+    """(optimize, evaluate, step_loss) on rows: ``optimize(hs, p0) ->
+    (energies, params)`` runs ``steps`` adam steps of every row, the
+    energies those of the returned parameters (with ``recycle``, a boosted
+    ``final_iters`` evaluation, never the recycled residual);
+    ``evaluate(hs, p)`` reads fixed parameters with the optimizer's final
+    solve; ``step_loss(hs, p)`` is the summed loss of a first step."""
+    from ..algorithms.ground_state import _recycled_adam_core, _recycled_r0
+    from ..objectives.energy import energy_exact_env
+    from ..optim.minimize import adam_steps, cosine_decay
+
+    loss_env = _recycled_loss_env(build, D)
+
+    def r0(p):
+        return _recycled_r0(D, complex_type(p), p.device).expand(p.shape[:-1] + (D, D))
+
+    def step_loss(hs, p):
+        if recycle:
+            return loss_env(hs, p, r0(p), recycle_iters)[0].sum()
+        return energy_exact_env(build(p), hs).sum()
+
+    def optimize(hs, p0):
+        if recycle:
+            x, _, e = _recycled_adam_core(lambda p, r, it: loss_env(hs, p, r, it), p0, r0(p0), steps, lr,
+                                          recycle_iters, final_iters, record=False)
+            return e, x
+        x, _ = adam_steps(lambda p: step_loss(hs, p), p0, steps, lr, cosine_decay(steps))
+        return evaluate(hs, x), x
+
+    @torch.no_grad()
+    def evaluate(hs, p):
+        if recycle:
+            return loss_env(hs, p, r0(p), final_iters)[0]
+        return energy_exact_env(build(p), hs)
+
+    return optimize, evaluate, step_loss
+
+
+def _saved_bytes(loss, p: torch.Tensor) -> int:
+    """Bytes autograd saves for the backward of ``loss(p)``, counted with
+    saved-tensor hooks (views counted whole: an upper bound)."""
+    total = 0
+
+    def pack(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+        return t
+
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss(p.detach().requires_grad_())
+    return total
+
+
+def chart_point_chunk(n: int, restarts: int, row_bytes: int, device) -> int:
+    """Points a chart-sweep program takes at once: all n on the CPU; on
+    CUDA as many as half the card's free memory holds of ``row_bytes``
+    (the saved tensors of one row's step) per restart slot."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return n
+    free, _ = torch.cuda.mem_get_info(device)
+    return max(1, min(n, int(free // 2 // max(1, restarts * row_bytes))))
+
+
+def _sweep_from_starts(gs: torch.Tensor, p0s: torch.Tensor, D: int, ansatz: str, steps: int, lr: float,
+                       refine_passes: int, recycle: bool, point_chunk: int | None, jitter):
+    """The body of ``sweep_ground_states`` from given starts p0s (n,
+    restarts, n_params), on gs's device and in its type; ``jitter(k,
+    shift, shape)`` gives refine pass k's noise for the slots past 0 (the
+    JAX package folds 1000 + 2k + (shift > 0) into its key).  Returns
+    (energies (n,), params (n, n_params))."""
+    build, _ = _sweep_ansatz(ansatz, D)
+    optimize, evaluate, step_loss = _chart_programs(build, D, steps, lr, recycle)
+    n, restarts, k = p0s.shape
+    hs_all = tfim_matrix(gs)
+    if point_chunk is None:
+        row_bytes = _saved_bytes(lambda p: step_loss(hs_all[:1], p), p0s[:1, 0])
+        point_chunk = chart_point_chunk(n, restarts, row_bytes, gs.device)
+
+    def run(p0):
+        """Every chunk's restarts optimized, the best kept per point."""
+        es, ps = [], []
+        for i in range(0, n, point_chunk):
+            m = min(point_chunk, n - i)
+            hs = hs_all[i:i + m, None].expand(m, restarts, 4, 4).reshape(-1, 4, 4)
+            e, p = optimize(hs, p0[i:i + m].reshape(-1, k))
+            e = e.reshape(m, restarts)
+            j = torch.argmin(e, dim=1)
+            rows = torch.arange(m, device=e.device)
+            es.append(e[rows, j])
+            ps.append(p.reshape(m, restarts, k)[rows, j])
+        return torch.cat(es), torch.cat(ps)
+
+    def run_eval(p):
+        return torch.cat([evaluate(hs_all[i:i + point_chunk], p[i:i + point_chunk])
+                          for i in range(0, n, point_chunk)])
+
+    es, ps = run(p0s)
+    for kp in range(refine_passes):
+        for shift in (1, -1):
+            p_nb = torch.roll(ps, shift, 0)
+            # (a) the verbatim neighbour: the ground state is continuous in
+            # g, so a good neighbour's parameters cost O(dg^2) here; this
+            # hop heals an attractive bad basin that (b) can fall back into
+            e_nb = run_eval(p_nb)
+            better = e_nb < es
+            es = torch.where(better, e_nb, es)
+            ps = torch.where(better[:, None], p_nb, ps)
+            # (b) the polished re-optimization from the neighbour's basin;
+            # slot 0 exact, the other slots jittered
+            p0n = p_nb[:, None, :].expand(n, restarts, k)
+            if restarts > 1:
+                noise = jitter(kp, shift, p0n.shape).to(p0n)
+                noise[:, 0] = 0.0
+                p0n = p0n + noise
+            e2, p2 = run(p0n)
+            better = e2 < es
+            es = torch.where(better, e2, es)
+            ps = torch.where(better[:, None], p2, ps)
+    return es, ps
+
+
+def sweep_ground_states(gs, D: int = 2, ansatz: str = "suN", steps: int = 300, lr: float = 0.05,
+                        generator: torch.Generator | None = None, restarts: int = 1, refine_passes: int = 0,
+                        recycle: bool | None = None, point_chunk: int | None = None, warm_params=None,
+                        device=None):
+    """Ground-state energies of the TFIM for a batch of couplings g: adam
+    over the parameters of ``ansatz`` ("suN" (2D)^2 - 1, "deep_bw" the
+    depth-(n+1) brick wall, "full15" 15, a shallow circuit of
+    ``circuits.ansatze.STATE_ANSATZE`` 4), every point x restart one row
+    of one batch, the best restart kept per point.
+
+    ``recycle`` (None: on for D >= 4): the environment rides the steps,
+    refined by 24 warm power matvecs a step, with plain autograd back
+    through them; the reported energy is a 200-iteration evaluation of the
+    returned parameters.  Off, every step solves the environment cold
+    (``objectives.energy.energy_exact_env``).
+
+    ``refine_passes`` adiabatic-continuation passes after the random-start
+    sweep: in both directions, each point is (a) evaluated verbatim at its
+    neighbour's parameters and (b) re-optimized from them (slot 0 exact,
+    the other slots jittered by 0.05 normals); the elementwise best is
+    kept.  A point stuck in a bad basin inherits a neighbour's good one.
+
+    ``warm_params`` (n, n_params) replaces slot 0's start (the bond-growth
+    hook); the other slots stay random.  ``generator`` (a CPU generator,
+    seed 0 if None) draws the starts, normal * 0.5, and the jitter.
+    ``point_chunk`` bounds the points one program takes, for memory: None
+    is ``chart_point_chunk`` (all points on the CPU; on CUDA half the free
+    memory over one row's saved tensors); the chunks do not change the
+    result.  ``device`` defaults to gs's for a tensor, else to the card;
+    the precision follows a tensor gs (float32 -> complex64), else the
+    device (``config.default_dtypes``).
+
+    Returns (energies (n,), params (n, n_params)).
+    """
+    device = resolve_device(device, gs)
+    _, rdtype = default_dtypes(device, gs if isinstance(gs, torch.Tensor) else None)
+    gs = torch.as_tensor(gs).to(device, rdtype)
+    n = gs.shape[0]
+    _, n_params = _sweep_ansatz(ansatz, D)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    p0s = torch.randn((n, restarts, n_params), generator=generator, dtype=torch.float64) * 0.5
+    if warm_params is not None:
+        warm_params = torch.as_tensor(warm_params)
+        if tuple(warm_params.shape) != (n, n_params):
+            raise ValueError(f"warm_params must be {(n, n_params)}, got {tuple(warm_params.shape)}")
+        p0s[:, 0] = warm_params.to(p0s)
+
+    def jitter(k, shift, shape):
+        return 0.05 * torch.randn(shape, generator=generator, dtype=torch.float64)
+
+    return _sweep_from_starts(gs, p0s.to(device, rdtype), D, ansatz, steps, lr, refine_passes,
+                              D >= 4 if recycle is None else recycle, point_chunk, jitter)
+
+
+def _grown_from_starts(gs: torch.Tensor, D: int, steps: int, lr: float, restarts: int, refine_passes: int,
+                       D_start: int, stage_steps: int | None, eps: float, point_chunk: int | None,
+                       return_stages: bool, starts, jitter):
+    """The body of ``sweep_ground_states_grown``: ``starts(i, shape)`` gives
+    rung i's random starts (before slot 0 takes the warm start) and
+    ``jitter(i)`` rung i's refine-pass noise function."""
+    from ..core.lie import grow_su_params
+
+    if D_start < 2 or D & (D - 1) or D_start & (D_start - 1) or D < D_start:
+        raise ValueError("D and D_start must be powers of two with D >= D_start >= 2")
+    if stage_steps is not None and stage_steps < 1:
+        raise ValueError(f"stage_steps must be >= 1, got {stage_steps}")
+    ladder = [D_start]
+    while ladder[-1] < D:
+        ladder.append(2 * ladder[-1])
+    stages = {}
+    warm = None
+    n = gs.shape[0]
+    for i, d in enumerate(ladder):
+        final = d == D
+        p0s = starts(i, (n, restarts, (2 * d) ** 2 - 1)).to(gs.device, gs.dtype)
+        if warm is not None:
+            p0s[:, 0] = warm
+        es, ps = _sweep_from_starts(gs, p0s, d, "suN", steps if final or stage_steps is None else stage_steps,
+                                    lr, refine_passes if final else 0, d >= 4, point_chunk, jitter(i))
+        if return_stages:
+            stages[d] = (es, ps)
+        if not final:
+            # the exact linear su(N) -> su(2N) embedding, on the host
+            warm = torch.from_numpy(grow_su_params(ps.double().cpu().numpy(), eps)).to(gs.device, gs.dtype)
+    return (es, ps, stages) if return_stages else (es, ps)
+
+
+def sweep_ground_states_grown(gs, D: int, steps: int = 300, lr: float = 0.05,
+                              generator: torch.Generator | None = None, restarts: int = 1, refine_passes: int = 0,
+                              D_start: int = 2, stage_steps: int | None = None, eps: float = 4e-2,
+                              point_chunk: int | None = None, return_stages: bool = False, device=None):
+    """Bond-growth continuation sweep ("suN" only): optimize the whole
+    grid at D_start, embed every point's su(2D') parameters into su(4D')
+    (``core.lie.grow_su_params``, exact up to the eps nudge) as slot 0's
+    start of the next rung, and repeat up to D.  Every point enters the
+    larger manifold inside its smaller-D basin, which heals the attractive
+    bad basins random starts leave and refine passes cannot reach.
+
+    ``stage_steps`` (None: ``steps``) bounds the intermediate rungs;
+    refine passes run at the final D only.  Each rung draws its starts
+    from a generator of its own, seeded from ``generator`` (a CPU
+    generator, seed 0 if None).  ``point_chunk`` applies to every rung;
+    ``device`` and precision as ``sweep_ground_states``.  Returns
+    (energies, params) at D; with ``return_stages``, also {D': (energies,
+    params)} of every rung.
+    """
+    device = resolve_device(device, gs)
+    _, rdtype = default_dtypes(device, gs if isinstance(gs, torch.Tensor) else None)
+    gs = torch.as_tensor(gs).to(device, rdtype)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    gens = {}
+
+    def rung(i):
+        return gens.setdefault(i, torch.Generator().manual_seed(_slot_seed(seed, 2, i)))
+
+    def starts(i, shape):
+        return torch.randn(shape, generator=rung(i), dtype=torch.float64) * 0.5
+
+    def jitter(i):
+        return lambda k, shift, shape: 0.05 * torch.randn(shape, generator=rung(i), dtype=torch.float64)
+
+    return _grown_from_starts(gs, D, steps, lr, restarts, refine_passes, D_start, stage_steps, eps, point_chunk,
+                              return_stages, starts, jitter)
+
+
+def multi_start_ground_state(g: float, D: int = 2, ansatz: str = "suN", n_starts: int = 64, steps: int = 300,
+                             lr: float = 0.05, generator: torch.Generator | None = None, device=None):
+    """``n_starts`` random initializations at one coupling g, optimized in
+    one batch (``sweep_ground_states``), the best kept: the reference's
+    retry-until-monotone done in parallel.  ``device`` as
+    ``config.resolve_device`` (the card unless asked).  Returns (energy,
+    params)."""
+    device = resolve_device(device)
+    _, rdtype = default_dtypes(device)
+    gs = torch.full((n_starts,), float(g), dtype=rdtype, device=device)
+    es, params = sweep_ground_states(gs, D=D, ansatz=ansatz, steps=steps, lr=lr, generator=generator)
+    i = torch.argmin(es)
+    return es[i], params[i]
+
+
+def phase_diagram_sweep(gs, Ds=(2,), ansatz: str = "suN", steps: int = 300,
+                        generator: torch.Generator | None = None, device=None) -> torch.Tensor:
+    """(len(Ds), len(gs)) energy table: ``sweep_ground_states`` at each D
+    (ragged shapes, one batch each), each D's starts from a generator of
+    its own seeded from ``generator`` (a CPU generator, seed 0 if None)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    return torch.stack([
+        sweep_ground_states(gs, D=D, ansatz=ansatz, steps=steps,
+                            generator=torch.Generator().manual_seed(_slot_seed(seed, 3, i)), device=device)[0]
+        for i, D in enumerate(Ds)
+    ])
 
 
 def sweep_ground_states_fused(

@@ -254,7 +254,8 @@ def test_port_never_imports_jax():
             "qmps_torch.mps.imps", "qmps_torch.ham.hamiltonian", "qmps_torch.objectives.overlap",
             "qmps_torch.core.krylov", "qmps_torch.optim.riemann", "qmps_torch.mps.tdvp",
             "qmps_torch.parallel.sweep", "qmps_torch.mps.mpo", "qmps_torch.mps.excitations",
-            "qmps_torch.ham.exact", "qmps_torch.ham.classical_baselines"} <= set(names)
+            "qmps_torch.ham.exact", "qmps_torch.ham.classical_baselines", "qmps_torch.circuits.brickwork_deep",
+            "qmps_torch.utils.profiling"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}: importlib.import_module(m)\n"
