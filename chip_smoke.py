@@ -136,7 +136,30 @@ Phases (any failure exits non-zero, and nothing is caught):
      environments); (d) GrownSweepConfig, 256 points, D 2 -> 16, 300 steps
      (max < 5e-3, min > -1e-6); (e) one "deep_bw" descent step of the
      1,024 points at D = 8 and D = 16 under torch.profiler (step time,
-     device operations, idle share).
+     device operations, idle share);
+ 17. the noisy and sampled NISQ path in float32 (``noise_and_sampling``),
+     no hand kernel (the counters show it): (a) the reference's production
+     noise study, ``batched_noise_sweep`` 1.5 -> 0.2 at dt 0.02, 80 adam
+     steps a step, the levels 0, 1e-4, 1e-3, 1e-2 and 3e-2 in one batch,
+     cut to 30 of 300 outer steps (t_max 0.6) as phase 6's quench, timed
+     (its ground state and the sweep it runs, the final states kept)
+     after an untimed call of 2 outer steps through the entry point; the
+     start read back in float64 within (-1e-9, 5e-4) of exact, every rate
+     finite, the p = 0 row within 0.02 of the exact rate, the 3e-2 row's
+     last rate below it (the stall), and at the start the float32
+     objective and gradient of all five levels against complex128 on the
+     card (2e-5, 2e-4 max(1, |grad|)); (b) 4,096 trajectories a level on
+     (a)'s final states, within 4 standard errors of the density matrix's
+     P0 (equal to 1e-5 at p = 0), timed; (c)
+     NoisyNonSparseFullEnergyOptimizer(tfim(1), 1e-3), 300 adam steps, its
+     energy in (exact, exact + 0.25), and its trajectory mode (256) within
+     0.2 of the density matrix at the start; (d)
+     NoisySparseSampledEnergyOptimizer(tfim(1), 200,000 shots, depth 2): 20
+     evaluations, each within 5e-2 of the exact energy, their spread
+     within (0.5, 2) of the shot noise the exact probabilities predict
+     (fresh shots each time), timed, and a Nelder-Mead run of 200
+     iterations that ends finite; (e)
+     one inner step of (a) under torch.profiler.
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
@@ -211,6 +234,17 @@ SW_POINTS, SW_STEPS, SW_RESTARTS, SW_DBW_D, DBW_D, GROWN_POINTS = 1024, 300, 4, 
 # of the same state reads 2.5e-10 (the float32 mixed gauge's Cholesky
 # jitter, 32 eps)
 MPO_GATE, DISP_GATE = 1e-7, 1e-3
+# phase 17: the reference's production noise study (scripts/loschmidt.py:
+# 335-407): TFIM 1.5 -> 0.2 at dt 0.02 under depolarizing noise 1e-4 to
+# 1e-2 a qubit a moment, with the noiseless row and the strong level of
+# tests/test_capabilities.py:159-183; 80 adam steps at 3e-2 a step, a
+# 300-step L-BFGS ground state; cut to 30 of 300 outer steps (t_max 0.6),
+# as the quench of phase 6; tests/test_capabilities.py:35-72's noisy and
+# sampled optimizers (300 adam steps; 200,000 shots) and
+# tests/test_trajectories.py:86-98's trajectory mode (256)
+NOISE_LEVELS, NOISE_STEPS, NOISE_TRAJ = (0.0, 1e-4, 1e-3, 1e-2, 3e-2), 30, 4096
+NOISY_ADAM, NOISY_TRAJ, SAMPLED_SHOTS, SAMPLED_EVALS, SAMPLED_NM_ITERS = 300, 256, 200000, 20, 200
+NOISE_TRAJ_CALLS = 50  # (b)'s timed calls
 
 # published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
 # tensor cores, TF32 on the tensor cores (dense), device memory
@@ -1345,6 +1379,235 @@ def sweeps_and_deep_brickwork(dev, card, pool, points=SW_POINTS, steps=SW_STEPS,
     return out
 
 
+def noise_and_sampling(dev, card, steps=NOISE_STEPS, inner=INNER, n_traj=NOISE_TRAJ, adam=NOISY_ADAM,
+                       shots=SAMPLED_SHOTS, nm_iters=SAMPLED_NM_ITERS):
+    """Phase 17 on ``dev`` in float32: the noisy and sampled NISQ path, (a)
+    to (e) of the module's docstring.  No hand kernel, and the counters
+    show it.  Returns the figures of the summary line (the arguments cut
+    the sizes for a rehearsal on the CPU)."""
+    import scipy.linalg
+
+    from qmps_torch.algorithms import (
+        NoisyNonSparseFullEnergyOptimizer,
+        NoisySparseSampledEnergyOptimizer,
+        batched_noise_sweep,
+    )
+    from qmps_torch.algorithms.evolve import _batched_noise_sweep
+    from qmps_torch.circuits.ansatze import shallow_cnot_state, shallow_full_state
+    from qmps_torch.embed.unitaries import unitary_to_tensor
+    from qmps_torch.env.exact import get_env_exact
+    from qmps_torch.env.variational import state_circuit_psi
+    from qmps_torch.ham.exact import loschmidt_rate, tfim_gs_energy_f64
+    from qmps_torch.ham.hamiltonian import tfim
+    from qmps_torch.kernels import _lib
+    from qmps_torch.mps.transfer import right_fixed_point
+    from qmps_torch.objectives.energy import energy_exact_env
+    from qmps_torch.objectives.noise import noisy_tdvp_amplitude, noisy_tdvp_objective
+    from qmps_torch.objectives.sampling import _measured_state
+    from qmps_torch.objectives.overlap import bell_tdvp_ops, mixed_transfer_with_gate
+    from qmps_torch.objectives.trajectories import _trajectory_states, _uniforms, trajectory_tdvp_p0
+    from qmps_torch.utils.host_eval import host_energy_gauge_free, tfim_h64_batch
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    _lib.reset_launches()
+    levels = torch.tensor(NOISE_LEVELS, dtype=torch.float32, device=dev)
+    n_lv = levels.shape[0]
+
+    def u2t(p):
+        return unitary_to_tensor(shallow_full_state(p))
+
+    # (a) untimed: the entry point, 2 outer steps from its own ground state
+    t0 = time.perf_counter()
+    _, warm_rates = batched_noise_sweep(G0, 0.2, 2 * DT, 2, levels, inner_steps=inner, gs_steps=GS_STEPS, lr=QUENCH_LR,
+                                        generator=torch.Generator().manual_seed(0))
+    sync()
+    t_warm = time.perf_counter() - t0
+    # timed: the entry point's body, which also hands back the final
+    # states (for (b)) and the ground state's parameters
+    t0 = time.perf_counter()
+    times, rates, ps, p_gs = _batched_noise_sweep(G0, 0.2, steps * DT, steps, levels, inner, GS_STEPS, QUENCH_LR,
+                                                  torch.Generator().manual_seed(0), None)
+    sync()
+    t_sweep = time.perf_counter() - t0
+    n_inner = steps * inner
+    t = np.arange(1, steps + 1) * DT
+    got = rates.double().cpu().numpy()
+    err0 = np.abs(got[0] - loschmidt_rate(t, G0, 0.2))
+    d_warm = float(np.abs(warm_rates.double().cpu().numpy() - got[:, :2]).max())
+    with torch.no_grad():
+        e_dev = float(energy_exact_env(shallow_full_state(p_gs), torch.from_numpy(tfim(G0).to_matrix())))
+        A_gs = u2t(p_gs)
+    err_gs = host_energy_gauge_free(A_gs, tfim_h64_batch([G0])[0], f32_ref=e_dev) - float(tfim_gs_energy_f64(G0))
+    print(f"noise sweep batched_noise_sweep({G0} -> 0.2, dt {DT}, {steps} x {inner} inner steps, levels "
+          f"{NOISE_LEVELS}; {rates.dtype} on {rates.device}): {t_sweep:.4f} s with its {GS_STEPS}-step ground "
+          f"state, {n_inner / t_sweep:.2f} inner steps/s ({n_inner * n_lv / t_sweep:.1f} level-steps/s; the "
+          f"untimed 2 outer steps through the entry point {t_warm:.3f} s, their rates {d_warm:.3g} from the timed "
+          f"run's); start float64 readout error {err_gs:.4g} (in (-1e-9, 5e-4)); p = 0 max |rate - exact| "
+          f"{err0.max():.4g} (< 0.02); last rates " + ", ".join(f"{p:g}: {r:.6f}" for p, r in zip(NOISE_LEVELS, got[:, -1]))
+          + f" (on {card})", flush=True)
+    require(got.shape == (n_lv, steps) and np.all(np.isfinite(got)) and ps.shape == (n_lv, 15),
+            "the noise sweep's rates finite, of the expected shape")
+    require(np.abs(times.double().cpu().numpy() - t).max() < 1e-6, "the noise sweep's time grid")
+    require(-1e-9 < err_gs < 5e-4, "the noise sweep's start against the exact energy")
+    require(err0.max() < 0.02, "the noise sweep's p = 0 row against the exact rate")
+    require(got[-1, -1] < got[0, -1], "the strongest noise stalls below the noiseless rate")
+    require(d_warm < 1e-4, "the entry point's first steps are the timed run's")
+    out.update({"noise_sweep_seconds": t_sweep, "noise_sweep_inner_steps_per_second": n_inner / t_sweep,
+                "noise_sweep_warm_up_seconds": t_warm, "noise_gs_energy_error_f64": err_gs,
+                "noise_p0_max_rate_error": float(err0.max()),
+                **{f"noise_last_rate_{p:g}": float(r) for p, r in zip(NOISE_LEVELS, got[:, -1])}})
+
+    # the float32 objective and gradient of all five levels at the start,
+    # against complex128 on the same device
+    W_np = scipy.linalg.expm(-1j * tfim(0.2).to_matrix() * (2 * DT))
+    grads = {}
+    for ct in (torch.complex64, torch.complex128):
+        q = p_gs.to(ct.to_real()).expand(n_lv, -1).clone().requires_grad_()
+        with torch.no_grad():
+            A = u2t(q)
+        v = noisy_tdvp_objective(A, u2t(q), torch.from_numpy(W_np).to(dev, ct), levels.to(ct.to_real()))
+        v.sum().backward()
+        grads[ct] = (v.detach().double(), q.grad.double())
+    (v32, g32), (v64, g64) = grads[torch.complex64], grads[torch.complex128]
+    err_v = (v32 - v64).abs().max().item()
+    err_g = ((g32 - g64).abs().amax(-1) / g64.abs().amax(-1).clamp(min=1)).max().item()
+    print(f"noise sweep start, float32 against complex128 on {dev.type}: objective {err_v:.3g} (< 2e-5), gradient "
+          f"{err_g:.3g} (< 2e-4 max(1, |grad|)) over the {n_lv} levels")
+    require(err_v < 2e-5 and err_g < 2e-4, "the float32 noisy objective and gradient against complex128")
+    out.update({"noise_objective_error_f32": err_v, "noise_gradient_error_f32": err_g})
+
+    # (b) trajectories on (a)'s final states, 4,096 a level
+    W = torch.from_numpy(W_np).to(dev, torch.complex64)
+    with torch.no_grad():
+        B = u2t(ps)
+        _, r = right_fixed_point(*mixed_transfer_with_gate(B, B, W))
+        exact = noisy_tdvp_amplitude(B, B, W, r, levels).double()
+        seed = 5
+        gen = (lambda: torch.Generator(device=dev).manual_seed(seed))
+        p0_mc = trajectory_tdvp_p0(B, B, W, r, levels, gen(), n_traj).double()  # also the warm-up
+        sync()
+        # one call lasts ~10-20 ms: time a loop of them
+        t0 = time.perf_counter()
+        for _ in range(NOISE_TRAJ_CALLS):
+            trajectory_tdvp_p0(B, B, W, r, levels, gen(), n_traj)
+        sync()
+        t_traj = (time.perf_counter() - t0) / NOISE_TRAJ_CALLS
+        # the spread of the same draws, for the standard error
+        us = _uniforms(gen(), (n_lv, n_traj, 11, 6))
+        x = _trajectory_states(bell_tdvp_ops(B, B, W, r), 6, levels, us, dtype=B.dtype, device=dev)[..., 0]
+        x = x.abs().square().double()
+    se = (x.std(-1) / n_traj ** 0.5).cpu().numpy()
+    dev_mc = (p0_mc - exact).abs().cpu().numpy()
+    same = (x.mean(-1) - p0_mc).abs().max().item()
+    print(f"trajectories (4,096 a level on the final states, {n_lv * n_traj / t_traj:.0f} trajectories/s, "
+          f"{t_traj:.5f} s a call, the mean of {NOISE_TRAJ_CALLS}): |P0_mc - P0| "
+          + ", ".join(f"{p:g}: {d:.3g} ({d / s:.2f} se)" if s > 0 else f"{p:g}: {d:.3g}"
+                      for p, d, s in zip(NOISE_LEVELS, dev_mc, se))
+          + f"; the spread's draws reproduce the estimate to {same:.2g}")
+    require(dev_mc[0] < 1e-5 and np.all(dev_mc[1:] < 4 * se[1:]) and same < 1e-6,
+            "the trajectories' P0 against the density matrix")
+    out.update({"noise_trajectories_per_second": n_lv * n_traj / t_traj, "noise_trajectory_call_seconds": t_traj,
+                "noise_trajectory_max_standard_errors": float(np.max(dev_mc[1:] / se[1:]))})
+
+    # (c) the noisy optimizer, density matrix and trajectories
+    opt = NoisyNonSparseFullEnergyOptimizer(tfim(1.0), 1e-3, device=dev)
+    opt.change_settings({"method": "adam", "maxiter": adam})
+    sync()
+    t0 = time.perf_counter()
+    res = opt.optimize()
+    sync()
+    t_opt = time.perf_counter() - t0
+    e_ex = float(tfim_gs_energy_f64(1.0))
+    opt_mc = NoisyNonSparseFullEnergyOptimizer(tfim(1.0), 1e-3, simulation="trajectories", n_traj=NOISY_TRAJ,
+                                               device=dev)
+    with torch.no_grad():
+        e_dm0 = opt.objective_function(opt.initial_guess).item()
+        e_mc0 = opt_mc.objective_function(opt_mc.initial_guess).item()
+    print(f"NoisyNonSparseFullEnergyOptimizer(tfim(1), 1e-3, adam {adam}; {opt.initial_guess.dtype}): {t_opt:.3f} s "
+          f"({adam / t_opt:.1f} steps/s), energy - exact {res.fun - e_ex:.4g} (in (0, 0.25)); at the start "
+          f"trajectories ({NOISY_TRAJ}) {e_mc0:.5f} against the density matrix {e_dm0:.5f} (within 0.2)")
+    require(e_ex < res.fun < e_ex + 0.25, "the noisy optimizer's energy above exact, under exact + 0.25")
+    require(abs(e_mc0 - e_dm0) < 0.2, "the trajectory mode against the density matrix")
+    out.update({"noisy_optimizer_seconds": t_opt, "noisy_optimizer_energy_error": res.fun - e_ex,
+                "noisy_optimizer_trajectory_gap": abs(e_mc0 - e_dm0)})
+
+    # (d) the sampled optimizer: fresh shots at every evaluation.  An
+    # estimate is sum_s c_s (1 - 2 k_s / N), so two fresh draws can give
+    # the same value (at 2e5 shots a TFIM estimate takes ~1,400 likely
+    # values): the gate is the spread, which a frozen draw makes zero, set
+    # against the shot noise the exact probabilities predict
+    sopt = NoisySparseSampledEnergyOptimizer(tfim(1.0), n_samples=shots, depth=2, device=dev)
+    p = sopt.initial_guess
+    with torch.no_grad():
+        U = shallow_cnot_state(2, p.double().cpu())
+        e_c = float(energy_exact_env(U, torch.from_numpy(tfim(1.0).to_matrix())))
+        psi = state_circuit_psi(U, get_env_exact(U), 2)
+        var = 0.0
+        for string, coef in tfim(1.0).strings.items():
+            # P(qubit 1 reads 1) of the state the string measures
+            b = _measured_state(string, psi, (1, 2)).abs().square().reshape(2, 2, -1)[:, 1].sum().item()
+            var += 4 * complex(coef).real ** 2 * b * (1 - b) / shots
+    sopt.objective_function(p)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    vals = [sopt.objective_function(p).item() for _ in range(SAMPLED_EVALS)]
+    t_eval = time.perf_counter() - t0
+    sopt.change_settings({"maxiter": nm_iters})
+    t0 = time.perf_counter()
+    nm = sopt.optimize()
+    t_nm = time.perf_counter() - t0
+    d = np.abs(np.asarray(vals) - e_c)
+    spread = float(np.std(vals, ddof=1)) / var ** 0.5
+    print(f"NoisySparseSampledEnergyOptimizer(tfim(1), {shots} shots, depth 2): {SAMPLED_EVALS / t_eval:.1f} "
+          f"evaluations/s; max |E_sampled - E| {d.max():.4g} (< 5e-2); {len(set(vals))} distinct of "
+          f"{SAMPLED_EVALS}, their spread {spread:.3f} of the shot noise's {var ** 0.5:.3g} (in (0.5, 2)); "
+          f"Nelder-Mead {nm.nit} iterations in {t_nm:.2f} s, final {nm.fun:.5f} (exact "
+          f"{float(tfim_gs_energy_f64(1.0)):.5f})")
+    require(d.max() < 5e-2 and 0.5 < spread < 2, "the sampled objective: near exact, fresh shot noise")
+    require(math.isfinite(nm.fun), "the sampled Nelder-Mead ends finite")
+    out.update({"sampled_evaluations_per_second": SAMPLED_EVALS / t_eval, "sampled_max_error": float(d.max()),
+                "sampled_spread_over_shot_noise": spread,
+                "sampled_nelder_mead_seconds": t_nm, "sampled_nelder_mead_final": nm.fun})
+
+    # (e) one inner step of (a) under torch.profiler
+    q = ps.detach().clone().requires_grad_()
+    adam_opt = torch.optim.Adam([q], lr=QUENCH_LR, fused=cuda)
+    with torch.no_grad():
+        As = u2t(ps)
+
+    def inner_step():
+        adam_opt.zero_grad(set_to_none=True)
+        noisy_tdvp_objective(As, u2t(q), W, levels).sum().backward()
+        adam_opt.step()
+
+    inner_step()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        inner_step()
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e2
+    if cuda:
+        host, busy, top, ops = device_breakdown(inner_step, 5, host_ops=12)
+        idle = None if busy is None else 1 - busy / step_ms
+        print(f"noise sweep inner step ({n_lv} levels) under torch.profiler: {step_ms:.4f} ms unprofiled (a mean "
+              f"of 10), {host:.4f} profiled; {ops:.0f} device operations a step; device busy "
+              + ("not measured (no kernel recorded)" if busy is None else
+                 f"{busy:.4f} ms, idle share {idle:.4f}; largest: " + "; ".join(f"{n[:60]} {t:.4f} ms" for n, t in top))
+              + f" (on {card})")
+        out.update({"noise_inner_step_ms": step_ms, "noise_inner_step_device_ops": ops,
+                    "noise_inner_step_idle_share": idle})
+    else:
+        print(f"noise sweep inner step ({n_lv} levels): {step_ms:.4f} ms on the CPU")
+
+    launched = dict(_lib.launches)
+    print(f"phase 17 hand-kernel launches: {launched}")
+    require(not any(launched.values()), "the noisy and sampled path launches no hand kernel")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2040,6 +2303,11 @@ def main() -> int:
         charts = sweeps_and_deep_brickwork(dev, card, pool)
         print(f"phase 16 in {time.perf_counter() - t16:.1f} s")
 
+    # ---- 17. the noisy and sampled NISQ path ----
+    t17 = time.perf_counter()
+    noisy = noise_and_sampling(dev, card)
+    print(f"phase 17 in {time.perf_counter() - t17:.1f} s")
+
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
         "K2": ("energy_fwd", "qmps_torch/csrc/energy_fused.cu", "qmps_tpu/kernels/energy_fused.py:271"),
@@ -2075,7 +2343,7 @@ def main() -> int:
                       **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},
                       **{f"tdvp_d{D}_value_error": e[0] for D, e in big_errs.items()},
                       **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}, **evo,
-                      **large, **classical, **charts}))
+                      **large, **classical, **charts, **noisy}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -13,10 +13,14 @@ adam loop warm-started from the current parameters.
   pipeline (scripts/loschmidt.py:335-382).
 - ``batched_quench_sweep``: a family of quench trajectories in lockstep,
   with both engines.
+- ``NoisyMPSTimeEvolve``: the stepper on the depolarizing-noise objective
+  (scripts/loschmidt.py:241-277); ``batched_noise_sweep``: the
+  reference's production noise study, every noise level in lockstep as
+  one batch; ``noisy_loschmidt_echo_run``: the same study one stepper a
+  level (scripts/loschmidt.py:335-382).
 
-The noisy steppers and sweeps wait for objectives/noise (ROADMAP.md, "The
-rest").  The JAX package's ``chunk``, ``mesh`` and compiled-step cache
-are TPU compile workarounds and have no counterpart here.
+The JAX package's ``chunk``, ``mesh`` and compiled-step cache are TPU
+compile workarounds and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from ..embed.unitaries import unitary_to_tensor
 from ..ham.hamiltonian import as_host_matrix, tfim
 from ..mps.imps import iMPS
 from ..mps.transfer import right_fixed_point
+from ..objectives.noise import noisy_tdvp_objective
 from ..objectives.overlap import tdvp_objective, tdvp_objective_pallas
 from ..optim.minimize import adam_steps
 from ..parallel.sweep import tfim_matrix
@@ -82,6 +87,11 @@ class MPSTimeEvolve:
     def tensor(self, params: torch.Tensor) -> torch.Tensor:
         return unitary_to_tensor(self.gate(params))
 
+    def objective(self, A: torch.Tensor, B: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+        """The inner objective of a step, candidate B against W|A>: the
+        dense TDVP objective (the noisy stepper overrides it)."""
+        return tdvp_objective(A, B, W)
+
     def step(self, params: torch.Tensor):
         """One TDVP step from ``params``: ``inner_steps`` adam steps of the
         objective at a constant rate, from a fresh optimizer state.
@@ -92,7 +102,7 @@ class MPSTimeEvolve:
             A = self.tensor(params)
 
         def loss(p):
-            return tdvp_objective(A, self.tensor(p), W)
+            return self.objective(A, self.tensor(p), W)
 
         p = _warm_started_minimize(loss, params, self.inner_steps, self.lr)
         with torch.no_grad():
@@ -259,3 +269,102 @@ def batched_quench_sweep(
         les.append(ov.abs().square())
     times = torch.arange(1, n_steps + 1, dtype=rdtype, device=device) * dt
     return times, torch.stack(les, dim=1)
+
+
+class NoisyMPSTimeEvolve(MPSTimeEvolve):
+    """TDVP stepper whose inner objective is the depolarizing-noise
+    density-matrix amplitude (scripts/loschmidt.py:241-277 noisy_obj),
+    ``objectives.noise.noisy_tdvp_objective``, with exact gradients
+    through the channel."""
+
+    def __init__(self, H, dt: float, depolarizing_prob: float, **kw):
+        self.p_noise = depolarizing_prob
+        super().__init__(H, dt, **kw)
+
+    def objective(self, A, B, W):
+        return noisy_tdvp_objective(A, B, W, self.p_noise)
+
+
+def batched_noise_sweep(g0: float, g1: float, t_max: float, n_steps: int, noise_levels, inner_steps: int = 80,
+                        gs_steps: int = 300, lr: float = 3e-2, generator: torch.Generator | None = None,
+                        device=None):
+    """The reference's production noise study (scripts/loschmidt.py:335-382,
+    one cluster job per depolarizing probability) in lockstep: the ground
+    state of tfim(g0) (L-BFGS, ``gs_steps``, the full15 ansatz, the guess
+    from ``generator``) quenched to tfim(g1), every noise level advancing
+    as one row of an (L, 15) parameter tensor (``_noise_sweep_from``).
+    ``device`` defaults to ``noise_levels``' for a tensor, else to the card
+    (``config.resolve_device``); a float32 ``noise_levels`` tensor sets
+    float32, else the device sets the precision.
+
+    Returns (times (n_steps,), rates (L, n_steps)), rate = -log
+    |<psi_0|psi_t>|^2 of the evolved pure parametrized state (the noise
+    shapes the optimization landscape, as in the reference)."""
+    return _batched_noise_sweep(g0, g1, t_max, n_steps, noise_levels, inner_steps, gs_steps, lr, generator,
+                                device)[:2]
+
+
+def _batched_noise_sweep(g0, g1, t_max, n_steps, noise_levels, inner_steps, gs_steps, lr, generator, device):
+    """``batched_noise_sweep``, returning also the final parameters (L, 15)
+    and the ground state's (15,): (times, rates, final, ground state)."""
+    device = resolve_device(device, noise_levels)
+    _, rdtype = default_dtypes(device, like=noise_levels)
+    params0 = find_ground_state(tfim(g0), D=2, ansatz="full15", method="lbfgs", steps=gs_steps,
+                                generator=generator, device=device).params.to(rdtype)
+    return _noise_sweep_from(params0, g1, t_max, n_steps, noise_levels, inner_steps, lr) + (params0,)
+
+
+def _noise_sweep_from(params0: torch.Tensor, g1: float, t_max: float, n_steps: int, noise_levels,
+                      inner_steps: int = 80, lr: float = 3e-2):
+    """``batched_noise_sweep`` from the initial parameters ``params0`` (15,)
+    on their device and in their precision: per outer step of dt = t_max /
+    n_steps, ``inner_steps`` constant-rate adam steps from a fresh state of
+    the summed noisy objective (adam is elementwise, so each row descends
+    as it would alone, as the JAX package's vmap does; W = expm(-i h(g1)
+    2 dt) on the host in complex128), then each row's overlap density with
+    the initial state.  Returns (times, rates, the final parameters (L,
+    15))."""
+    cdtype = complex_type(params0)
+    device = params0.device
+    ps_noise = torch.as_tensor(noise_levels, dtype=torch.float64).to(device, params0.dtype)
+    dt = t_max / n_steps
+    W = torch.from_numpy(scipy.linalg.expm(-1j * tfim(g1).to_matrix() * (2 * dt))).to(device, cdtype)
+
+    def u2t(p):
+        return unitary_to_tensor(ansatze.shallow_full_state(p))
+
+    ps = params0.expand(ps_noise.shape[0], -1).clone()
+    with torch.no_grad():
+        A0 = u2t(params0)
+    les = []
+    for _ in range(n_steps):
+        with torch.no_grad():
+            As = u2t(ps)
+        ps = _warm_started_minimize(lambda q: noisy_tdvp_objective(As, u2t(q), W, ps_noise).sum(), ps,
+                                    inner_steps, lr)
+        with torch.no_grad():
+            ov, _ = right_fixed_point(u2t(ps), A0.expand_as(As))
+        les.append(ov.abs().square())
+    times = torch.arange(1, n_steps + 1, dtype=params0.dtype, device=device) * dt
+    return times, -torch.log(torch.stack(les, dim=1)), ps
+
+
+def noisy_loschmidt_echo_run(g0: float, g1: float, t_max: float, n_steps: int, noise_levels,
+                             inner_steps: int = 80, gs_steps: int = 300, generator: torch.Generator | None = None,
+                             device=None):
+    """The production noise study one trajectory at a time
+    (scripts/loschmidt.py:335-382): the ground state of tfim(g0), then per
+    noise level ``MPSTimeEvolve`` (p = 0) or ``NoisyMPSTimeEvolve`` under
+    tfim(g1).  ``device`` as ``loschmidt_echo_run``.  Returns (times,
+    rates (L, n_steps))."""
+    device = resolve_device(device)
+    gs = find_ground_state(tfim(g0), D=2, ansatz="full15", method="lbfgs", steps=gs_steps,
+                           generator=generator, device=device)
+    dt = t_max / n_steps
+    rates = []
+    for p in noise_levels:
+        stepper = (MPSTimeEvolve(tfim(g1), dt, inner_steps=inner_steps, device=device) if p == 0 else
+                   NoisyMPSTimeEvolve(tfim(g1), dt, p, inner_steps=inner_steps, device=device))
+        rates.append(-torch.log(stepper.evolve(gs.params, n_steps).loschmidt))
+    times = torch.arange(1, n_steps + 1, dtype=gs.params.dtype, device=device) * dt
+    return times, torch.stack(rates)

@@ -17,19 +17,38 @@ Op = Tuple[torch.Tensor, Sequence[int]]
 _LETTERS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
 
 
-def apply_unitary(psi: torch.Tensor, U: torch.Tensor, wires: Sequence[int], n: int) -> torch.Tensor:
-    """Apply a (..., 2^k, 2^k) gate to qubits ``wires`` of (..., 2^n) states."""
+def n_qubits(M: torch.Tensor) -> int:
+    """The qubits of a (..., 2^n) state or a (..., 2^n, 2^n) gate."""
+    return int(M.shape[-1]).bit_length() - 1
+
+
+def apply_unitary(psi: torch.Tensor, U: torch.Tensor, wires: Sequence[int], n: int, d: int = 2) -> torch.Tensor:
+    """Apply a (..., d^k, d^k) gate to sites ``wires`` of (..., d^n) states
+    (qubits for d = 2; the density-matrix path applies superoperators to
+    (ket, bra) pairs, d = 4)."""
     k = len(wires)
     state = _LETTERS[:n]
     out = _LETTERS[n:n + k]
     result = list(state)
     for w, o in zip(wires, out):
         result[w] = o
-    psi_t = psi.reshape(psi.shape[:-1] + (2,) * n)
-    U_t = U.reshape(U.shape[:-2] + (2,) * (2 * k))
+    psi_t = psi.reshape(psi.shape[:-1] + (d,) * n)
+    U_t = U.reshape(U.shape[:-2] + (d,) * (2 * k))
     ins = "".join(state[w] for w in wires)
     psi_t = torch.einsum(f"...{out}{ins},...{state}->...{''.join(result)}", U_t, psi_t)
-    return psi_t.reshape(psi_t.shape[:-n] + (2**n,))
+    return psi_t.reshape(psi_t.shape[:-n] + (d**n,))
+
+
+def apply_on_every_site(psi: torch.Tensor, mats, n: int, d: int = 2) -> torch.Tensor:
+    """Apply a one-site (..., d, d) matrix to every site of (..., d^n)
+    states: ``mats`` one tensor for all sites, or a list of n, one a site.
+    One batched product a site: each contracts the leading site and moves
+    it last, so after n of them the sites are back in order."""
+    for q in range(n):
+        m = mats if isinstance(mats, torch.Tensor) else mats[q]
+        psi = psi.reshape(psi.shape[:-1] + (d, d ** (n - 1))).mT @ m.mT
+        psi = psi.reshape(psi.shape[:-2] + (d**n,))
+    return psi
 
 
 def _first_gate(ops):

@@ -16,9 +16,19 @@ Z = torch.tensor([[1, 0], [0, -1]], dtype=torch.complex128)
 PAULI = {"I": I2, "X": X, "Y": Y, "Z": Z}
 
 
+def paulis():
+    """(X, Y, Z): the trio the reference unpacks everywhere."""
+    return X, Y, Z
+
+
 def kron_all(ops: Sequence[torch.Tensor]) -> torch.Tensor:
     """Tensor product of a list of matrices (qubit 0 first)."""
     return reduce(torch.kron, ops)
+
+
+def pauli_string(s: str) -> torch.Tensor:
+    """'ZZ' -> Z (x) Z, etc."""
+    return kron_all([PAULI[c] for c in s])
 
 
 def embed(op: torch.Tensor, loc: int, n_qubits: int) -> torch.Tensor:

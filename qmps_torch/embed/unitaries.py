@@ -9,8 +9,9 @@
 A left-canonical MPS tensor A (d, D, D) embeds as the isometry
 iso[(i, s), j] = A[s, i, j], completed to a unitary whose first D columns
 are iso (``core.linalg.unitary_completion``, the same completion as the JAX
-package's).  ``unitary_to_tensor`` is batched over leading dimensions; the
-others take one tensor, vector or matrix.
+package's).  ``tensor_to_unitary``, ``unitary_to_tensor`` and the
+``put_env_on_*`` embeddings are batched over leading dimensions; the others
+take one tensor, vector or matrix.
 """
 from __future__ import annotations
 
@@ -21,10 +22,10 @@ from ..core.linalg import row_completion, unitary_completion
 
 
 def tensor_to_unitary(A: torch.Tensor) -> torch.Tensor:
-    """Left-canonical (d, D, D) tensor -> (d D, d D) unitary whose first D
-    columns are the isometry (qmps/tools.py:123-148)."""
-    d, D, _ = A.shape
-    return unitary_completion(A.transpose(0, 1).reshape(D * d, D))
+    """Left-canonical (..., d, D, D) tensors -> (..., d D, d D) unitaries
+    whose first D columns are the isometry (qmps/tools.py:123-148)."""
+    d, D, _ = A.shape[-3:]
+    return unitary_completion(A.transpose(-3, -2).reshape(A.shape[:-3] + (D * d, D)))
 
 
 def unitary_to_tensor(U: torch.Tensor) -> torch.Tensor:
@@ -49,16 +50,22 @@ def environment_from_unitary(u: torch.Tensor) -> torch.Tensor:
 
 
 def _rows_over_norm(r0, r1, q: torch.Tensor):
-    n = torch.linalg.vector_norm(q.reshape(-1))
-    return torch.stack([torch.stack(r0), torch.stack(r1)]) / n, n
+    n = torch.linalg.matrix_norm(q)
+    rows = torch.stack([torch.stack(r0, -1), torch.stack(r1, -1)], -2)
+    return rows / n[..., None, None], n
+
+
+def _entries(q: torch.Tensor):
+    """q (..., 2, 2) -> its entries q00, q01, q10, q11, each (...,)."""
+    return q.reshape(q.shape[:-2] + (4,)).unbind(-1)
 
 
 def put_env_on_left_site(q: torch.Tensor, ret_n: bool = False):
-    """Embed a 2x2 matrix q as a 2-qubit unitary from which the Bell-pair
-    circuit reads q_ij / |q|_F (qmps/time_evolve_tools.py:38-53).  Row 0,
-    the only row the post-selected circuits address, is the reference's;
-    the other rows are a differentiable QR completion."""
-    a, b, c, d = q.T.reshape(-1)
+    """Embed (..., 2, 2) matrices q as 2-qubit unitaries from which the
+    Bell-pair circuit reads q_ij / |q|_F (qmps/time_evolve_tools.py:38-53).
+    Row 0, the only row the post-selected circuits address, is the
+    reference's; the other rows are a differentiable QR completion."""
+    a, b, c, d = _entries(q.mT)
     guess, n = _rows_over_norm([a, c.conj(), b, d.conj()], [c, -a.conj(), d, -b.conj()], q)
     A = SWAP.to(q.device, q.dtype) @ row_completion(guess)
     return (A, n) if ret_n else A
@@ -73,7 +80,7 @@ def get_env_off_left_site(A: torch.Tensor) -> torch.Tensor:
 def put_env_on_right_site(q: torch.Tensor, ret_n: bool = False):
     """The mirror embedding, for the left environment
     (qmps/time_evolve_tools.py:59-70)."""
-    a, b, c, d = q.reshape(-1)
+    a, b, c, d = _entries(q)
     guess, n = _rows_over_norm([a, b, d.conj(), -c.conj()], [c, d, -b.conj(), a.conj()], q)
     A = row_completion(guess)
     return (A, n) if ret_n else A

@@ -4,8 +4,7 @@
 are split symmetrically across the bond, as the reference does
 (qmps/ground_state.py:73-80).  Matrices are host numpy complex128; the
 callers move them onto their device and type.  ``as_host_matrix`` also
-takes an ``mps.mpo.MPO`` of range <= 2.  ``Hamiltonian.measure_energy``
-waits for objectives/sampling (ROADMAP.md, "The rest").
+takes an ``mps.mpo.MPO`` of range <= 2.
 """
 from __future__ import annotations
 
@@ -41,6 +40,15 @@ class Hamiltonian:
                 term = np.kron(term, PAULI[c].numpy())
             h = h + complex(J) * term
         return h
+
+    def measure_energy(self, generator: torch.Generator, psi: torch.Tensor, qubits=(1, 2),
+                       shots: int = 300000) -> torch.Tensor:
+        """Finite-shot Pauli-string energy estimate on a prepared state
+        (qmps/ground_state.py:97-108), shots from ``generator`` on psi's
+        device."""
+        from ..objectives.sampling import measure_energy
+
+        return measure_energy(generator, self.strings, psi, qubits=qubits, shots=shots)
 
     def calculate_energy(self, psi: torch.Tensor, loc: int = 1) -> torch.Tensor:
         """Exact <H> on the adjacent qubits (loc, loc + 1) of a prepared

@@ -99,3 +99,29 @@ def assert_brick_params_match(got, want):
     gauge[[b + j for b in range(0, n, 19) for j in (0, 4, 8, 12)] + [3]] = True
     np.testing.assert_allclose(got[..., ~gauge], want[..., ~gauge], atol=1e-8)
     np.testing.assert_allclose(got[..., gauge], want[..., gauge], atol=1e-7)
+
+
+_VIEWS = {"view", "_unsafe_view", "expand", "reshape", "transpose", "t", "permute", "select", "slice",
+          "unsqueeze", "squeeze", "as_strided", "alias", "detach", "_reshape_alias", "conj", "resolve_conj",
+          "_conj", "real", "imag", "view_as_real", "view_as_complex", "split", "unbind", "diagonal", "_neg_view",
+          "lift_fresh", "unflatten", "chunk"}
+
+
+def dispatched(fn) -> int:
+    """Operations ``fn`` dispatches, views not counted, on its second call
+    (first-call set-up not counted): on the card, each is roughly one
+    launch, and the drivers are bound by the host's dispatch (PERF.md §5)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__.split(".")[0] not in _VIEWS:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    fn()
+    with Count():
+        fn()
+    return Count.n

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_brick_params_match, to_np
+from _torch_parity import assert_brick_params_match, dispatched, to_np
 from qmps_torch.algorithms import ground_state_deep_brickwork
 from qmps_torch.circuits.brickwork_deep import (
     _n_qubits,
@@ -234,32 +234,6 @@ def test_default_start_depth_and_precision():
     assert f32.params.dtype == torch.float32 and f32.A.dtype == torch.complex64
 
 
-_VIEWS = {"view", "_unsafe_view", "expand", "reshape", "transpose", "t", "permute", "select", "slice",
-          "unsqueeze", "squeeze", "as_strided", "alias", "detach", "_reshape_alias", "conj", "resolve_conj",
-          "_conj", "real", "imag", "view_as_real", "view_as_complex", "split", "unbind", "diagonal", "_neg_view",
-          "lift_fresh", "unflatten", "chunk"}
-
-
-def _dispatched(fn) -> int:
-    """Operations ``fn`` dispatches, views not counted: on the card, each
-    is roughly one launch, and the chart sweeps are bound by the host's
-    dispatch (PERF.md §5)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func.__name__.split(".")[0] not in _VIEWS:
-                Count.n += 1
-            return func(*args, **(kwargs or {}))
-
-    fn()  # first-call set-up not counted
-    with Count():
-        fn()
-    return Count.n
-
-
 def test_u4_kak_dispatch_does_not_grow_with_the_batch():
     """All the bricks of a wall are one U4_kak call: its forward and
     backward dispatch the same operations for one brick as for a (64, 8)
@@ -269,7 +243,7 @@ def test_u4_kak_dispatch_does_not_grow_with_the_batch():
         p = torch.randn(shape + (19,), dtype=torch.float64, requires_grad=True)
         return lambda: (tlie.U4_kak(p).abs() ** 2).sum().backward()
 
-    n1, n64 = _dispatched(u4(())), _dispatched(u4((64, 8)))
+    n1, n64 = dispatched(u4(())), dispatched(u4((64, 8)))
     assert n1 == n64 <= 250
     hs = tsw.tfim_matrix(torch.linspace(0.1, 2.0, 8, dtype=torch.float64))
     steps = {}
@@ -277,8 +251,8 @@ def test_u4_kak_dispatch_does_not_grow_with_the_batch():
         build, k = tsw._sweep_ansatz(ansatz, D)
         step_loss = tsw._chart_programs(build, D, 1, 0.05, D >= 4)[2]
         x = torch.zeros(8, k, dtype=torch.float64, requires_grad=True)
-        steps[f"{ansatz} D = {D}"] = _dispatched(lambda: step_loss(hs, x).backward())
+        steps[f"{ansatz} D = {D}"] = dispatched(lambda: step_loss(hs, x).backward())
     p = torch.zeros(8, n_brick_params(4, 5), dtype=torch.float64, requires_grad=True)
-    wall = _dispatched(lambda: (brick_wall_unitary(p, 4, 5).abs() ** 2).sum().backward())
+    wall = dispatched(lambda: (brick_wall_unitary(p, 4, 5).abs() ** 2).sum().backward())
     print(f"U4_kak forward and backward: {n64} operations; the D = 8 wall's: {wall}; a sweep step's loss and "
           f"backward: {steps}")

@@ -96,7 +96,8 @@ def test_hamiltonian_matches_jax():
 def test_engine_and_ansatz_validation():
     """The default ansatz "suN" and the shallow circuit ansatze run, and
     equal JAX's energy at the same parameters (1e-10); an unknown ansatz
-    and an unported method raise."""
+    and an unknown method raise; rotosolve, a ported method now, runs
+    (tests/test_torch_optimizers.py holds it to JAX's)."""
     from qmps_tpu.circuits import ansatze as jans
     from qmps_tpu.objectives import energy as jenergy
 
@@ -114,8 +115,10 @@ def test_engine_and_ansatz_validation():
         assert abs(gs.energy - float(e_j)) < 1e-10, ansatz
     with pytest.raises(ValueError, match="unknown ansatz"):
         find_ground_state(tfim(1.0), ansatz="sun", steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="rotosolve"):
-        find_ground_state(tfim(1.0), ansatz="full15", method="rotosolve", steps=1, device="cpu")
+    with pytest.raises(ValueError, match="nope"):
+        find_ground_state(tfim(1.0), ansatz="full15", method="nope", steps=1, device="cpu")
+    gs = find_ground_state(tfim(1.0), ansatz="full15", method="rotosolve", steps=10, device="cpu")
+    assert np.isfinite(gs.energy) and gs.history.shape == (1,)
 
 
 def test_float32_params0_runs_the_quench_in_float32():
@@ -201,15 +204,20 @@ def test_float32_quench_gap_is_the_method():
                                    "sweep_ground_states_stiefel", "sweep_variance_certificates",
                                    "ground_state_riemannian", "vumps_ground_state",
                                    "vumps_ground_state_converged", "vumps_ground_state_mpo",
-                                   "variance_certificate", "Trajectory", "dispersion"])
+                                   "variance_certificate", "Trajectory", "dispersion", "minimize_scipy",
+                                   "minimize_bayesian", "batched_noise_sweep", "noisy_loschmidt_echo_run",
+                                   "NoisyNonSparseFullEnergyOptimizer"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without ``device`` on floats, lists or arrays, an entry point
     asks for the card and, on a machine without one, raises before it
     computes anything on the CPU."""
-    from qmps_torch.algorithms.evolve import MPSTimeEvolve, compile_state_to_ansatz, loschmidt_echo_run
+    from qmps_torch.algorithms import NoisyNonSparseFullEnergyOptimizer
+    from qmps_torch.algorithms.evolve import (MPSTimeEvolve, batched_noise_sweep, compile_state_to_ansatz,
+                                              loschmidt_echo_run, noisy_loschmidt_echo_run)
     from qmps_torch.mps import tdvp
     from qmps_torch.mps.excitations import dispersion
     from qmps_torch.mps.mpo import mpo_tfim, vumps_ground_state_mpo
+    from qmps_torch.optim.minimize import minimize_bayesian, minimize_scipy
     from qmps_torch.optim.riemann import ground_state_riemannian
     from qmps_torch.parallel.sweep import (sweep_ground_states_fused, sweep_ground_states_stiefel,
                                            sweep_variance_certificates)
@@ -236,6 +244,14 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
             np.eye(4)[:, :2].reshape(2, 2, 2).copy(), tfim(1.0).to_matrix()),
         "Trajectory": lambda: tdvp.Trajectory(np.ones((2, 2, 2)), tfim(0.5)).eulerint(0.1, 1),
         "dispersion": lambda: dispersion(tfim(1.5).to_matrix(), 4, [0.0], iters=1),
+        "minimize_scipy": lambda: minimize_scipy(lambda x: (x**2).sum(), np.zeros(2), maxiter=1),
+        "minimize_bayesian": lambda: minimize_bayesian(lambda x: (x**2).sum(), [(-1.0, 1.0)] * 2, n_calls=2,
+                                                       n_init=1),
+        "batched_noise_sweep": lambda: batched_noise_sweep(1.5, 0.2, 0.1, 1, [0.0, 1e-3], inner_steps=1,
+                                                           gs_steps=1),
+        "noisy_loschmidt_echo_run": lambda: noisy_loschmidt_echo_run(1.5, 0.2, 0.1, 1, [0.0, 1e-3], inner_steps=1,
+                                                                     gs_steps=1),
+        "NoisyNonSparseFullEnergyOptimizer": lambda: NoisyNonSparseFullEnergyOptimizer(tfim(1.0), 1e-3),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

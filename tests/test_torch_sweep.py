@@ -73,10 +73,13 @@ def test_port_converges_to_exact():
 
 
 def test_port_never_imports_jax():
-    """Importing the slice's modules leaves jax out of sys.modules."""
+    """Importing the slice's modules, the noise and sampling slice's among
+    them, leaves jax out of sys.modules."""
     code = (
         "import sys; import qmps_torch.parallel.sweep, qmps_torch.kernels.pallas_power, "
-        "qmps_torch.ham.classical_baselines, qmps_torch.utils.convert; "
+        "qmps_torch.ham.classical_baselines, qmps_torch.utils.convert, qmps_torch.objectives.noise, "
+        "qmps_torch.objectives.trajectories, qmps_torch.objectives.sampling, qmps_torch.env.exact, "
+        "qmps_torch.algorithms.represent, qmps_torch.optim.rotosolve, qmps_torch.algorithms; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'qmps_tpu'))]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
