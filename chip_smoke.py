@@ -68,7 +68,7 @@ Phases (any failure exits non-zero, and nothing is caught):
      same _extract_eigpair; the HMMA (tensor-core) instructions of K7's
      and K8's kernels in the library's SASS (cuobjdump); kernel timed on
      both inputs, plain version and torch.linalg.eig on E (one call after
-     one warm-up call), K7's bound with its products on the tensor cores
+     a warm-up call on one matrix), K7's bound with its products on the tensor cores
      and on the CUDA cores; K8's device-memory path timed at N = 256;
  12. main path, the batched D >= 3 TDVP objective: tdvp_objective_pallas
      and its Bs-gradient on 4,096 pairs at D = 4 (K7) and D = 8 (K8) with a
@@ -159,7 +159,27 @@ Phases (any failure exits non-zero, and nothing is caught):
      within (0.5, 2) of the shot noise the exact probabilities predict
      (fresh shots each time), timed, and a Nelder-Mead run of 200
      iterations that ends finite; (e)
-     one inner step of (a) under torch.profiler.
+     one inner step of (a) under torch.profiler;
+ 18. the scars Poincare ensembles (``scars_path``), no hand kernel (the
+     counters show it, (f)): (a) 100 starts on the <H(0.325)> shell of p0 =
+     [0.6, 0.9, 1.1, 0.4] (300 adam steps, float32), the largest residual
+     printed; (b) the classical ensemble from them on the example's grid
+     (2,000 times on [0, 60], float64, one batched Dormand-Prince run),
+     timed, its Poincare sections counted, 8 rows against the port's eager
+     odeint on the CPU at the same tolerances (1e-9) and against scipy's
+     DOP853 (rtol = atol = 1e-12) on the host: odeint at 1e-12 on t <= 5
+     within 1e-6, the default-tolerance rows over the whole horizon within
+     1e-2 (the host's references in spawned processes while the card runs);
+     (c) ScarsEvolver(0.325, 0.05, 200 inner steps, lr 1e-2) from p0, 12
+     steps in float32, within 0.05 of the classical trajectory; (d) the
+     quantum ensemble from the 100 starts, 12 steps of 120 inner steps in
+     float32, timed, its first 4 rows against the port's float64 run on
+     the CPU (1e-3 in wrapped angle), each row's gap to the classical
+     ensemble printed, also up to the bond gauges that map (th1, ph2) to
+     (-th1, ph2 + pi) and (th2, ph1) to (-th2, ph1 + pi); (e) one inner
+     step's time and MFU (``utils/flops.program_costs``), one outer step
+     under torch.profiler; and the native planner's plan of K6's network
+     beside ``cheapest_contraction``.
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
@@ -245,6 +265,19 @@ MPO_GATE, DISP_GATE = 1e-7, 1e-3
 NOISE_LEVELS, NOISE_STEPS, NOISE_TRAJ = (0.0, 1e-4, 1e-3, 1e-2, 3e-2), 30, 4096
 NOISY_ADAM, NOISY_TRAJ, SAMPLED_SHOTS, SAMPLED_EVALS, SAMPLED_NM_ITERS = 300, 256, 200000, 20, 200
 NOISE_TRAJ_CALLS = 50  # (b)'s timed calls
+# phase 18: the scars Poincare ensembles at the README's width (100
+# trajectories of the 2-site cell, the 16 x 16 gate, 4 x 4 transfer
+# matrices; mu 0.325 and p0 of tests/test_scars.py:44-57), the classical
+# one on examples/scars_poincare.py:41-42's grid (2,000 times on [0, 60]);
+# the quantum ensemble cut to 12 steps of 120 inner steps at dt 0.05
+SCARS_MU, SCARS_P0, SCARS_N, SCARS_T, SCARS_TIMES = 0.325, (0.6, 0.9, 1.1, 0.4), 100, 60.0, 2000
+SCARS_DT, SCARS_STEPS, SCARS_INNER, SCARS_SHELL_STEPS = 0.05, 12, 120, 300
+SCARS_ORACLE_ROWS, SCARS_ORACLE_T = 8, 5.0  # (b)'s rows against DOP853, and the tight run's horizon
+SCARS_F32_GATE = 1e-3  # (d): float32 against float64, wrapped angle
+# (b): the timed ensemble's rows against the port's eager odeint on the CPU
+# at the same default tolerances; a 1-ulp noise on every right-hand side
+# moves a row up to 3.3e-11 by t = 60 (a CPU rehearsal)
+SCARS_CPU_GATE = 1e-9
 
 # published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
 # tensor cores, TF32 on the tensor cores (dense), device memory
@@ -538,6 +571,14 @@ def eig_dominant(E):
     w, V = torch.linalg.eig(E)
     i = w.abs().argmax(-1)
     return w.gather(-1, i[:, None])[:, 0], V.gather(-1, i[:, None, None].expand(-1, V.shape[1], 1))[..., 0]
+
+
+def eig_library_ms(E):
+    """The time of one ``eig_dominant`` call on E, after a warm-up call on
+    one matrix: eig on CUDA tensors computes on the host, 5-30 s a call at
+    the kernels' batches, so a full warm-up call would double that."""
+    eig_dominant(E[:1])
+    return cuda_ms(lambda: eig_dominant(E), 1, warm_up=False)
 
 
 def overlap_einsum(U1, U2, U1p, U2p, Mr, Ml, W):
@@ -1608,6 +1649,271 @@ def noise_and_sampling(dev, card, steps=NOISE_STEPS, inner=INNER, n_traj=NOISE_T
     return out
 
 
+def _scars_rhs_np(y, mu):
+    """The classical scars equations in numpy (scars.py:176-199), written
+    apart from the port's torch ones: the host oracle's right-hand side."""
+    th1, ph1, ph2, th2 = y
+
+    def dth(a, b, c, d):
+        return np.tan(d) * np.sin(a) * np.cos(a) ** 2 * np.cos(b) + np.cos(d) * np.cos(c)
+
+    def dph(a, b, c, d):
+        return 2 * np.tan(a) * np.cos(d) * np.sin(c) - 0.5 * np.tan(d) * np.cos(a) * np.sin(b) * (
+            2 * np.sin(d) ** -2 + np.cos(2 * a) - 5)
+
+    return np.array([dth(th1, ph1, ph2, th2), -mu + dph(th1, ph1, ph2, th2), -mu + dph(th2, ph2, ph1, th1),
+                     dth(th2, ph2, ph1, th1)])
+
+
+def _dop853(y0s, ts):
+    """scipy's DOP853 at rtol = atol = 1e-12 on the host from each row of
+    y0s, at the times ts: (rows, len(ts), 4)."""
+    from scipy.integrate import solve_ivp
+
+    return np.stack([solve_ivp(lambda t, y: _scars_rhs_np(y, SCARS_MU), (ts[0], ts[-1]), y0, method="DOP853",
+                               rtol=1e-12, atol=1e-12, t_eval=ts).y.T for y0 in y0s])
+
+
+def _odeint_cpu(y0s, ts):
+    """The port's eager odeint of the scars equations on the CPU at its
+    default tolerances: (rows, len(ts), 4)."""
+    from qmps_torch.algorithms.scars import classical_poincare_sweep
+
+    return classical_poincare_sweep(torch.from_numpy(y0s), torch.from_numpy(ts), SCARS_MU, device="cpu").numpy()
+
+
+def _quantum_cpu(starts, steps, inner):
+    """The port's quantum ensemble from ``starts`` in float64 on the CPU."""
+    from qmps_torch.algorithms.scars import quantum_poincare_sweep
+
+    return quantum_poincare_sweep(torch.from_numpy(starts), SCARS_MU, SCARS_DT, steps, inner_steps=inner,
+                                  device="cpu").numpy()
+
+
+def wrapped_gap(a, b):
+    """|a - b| of angles, wrapped to [0, pi]."""
+    return np.abs(np.angle(np.exp(1j * (np.asarray(a, np.float64) - np.asarray(b, np.float64)))))
+
+
+def chart_free_gap(q, c):
+    """The largest wrapped gap over the last axis between the angles q and
+    c ([th1, ph1, ph2, th2]) up to the bond gauges diag(1, -1) of the
+    2-site cell, which leave the state as it is and map (th1, ph2) to
+    (-th1, ph2 + pi) and (th2, ph1) to (-th2, ph1 + pi): (...,)."""
+    gaps = []
+    for f1 in (False, True):
+        for f2 in (False, True):
+            e = np.array(q, np.float64)
+            if f1:
+                e[..., 0], e[..., 2] = -e[..., 0], e[..., 2] + np.pi
+            if f2:
+                e[..., 3], e[..., 1] = -e[..., 3], e[..., 1] + np.pi
+            gaps.append(wrapped_gap(e, c).max(-1))
+    return np.min(gaps, 0)
+
+
+def scars_path(dev, card):
+    """Phase 18 on ``dev``: the scars Poincare ensembles, (a) to (f) of the
+    module's docstring; the quantum paths in float32.  No hand kernel, and
+    the counters show it.  Returns the figures of the summary line."""
+    from qmps_torch.algorithms.scars import (
+        ScarsEvolver,
+        _cost_from,
+        _tdvp_step,
+        blocked_tensor,
+        classical_poincare_sweep,
+        classical_rhs,
+        classical_trajectory,
+        constant_energy_initial_conditions,
+        poincare_sections,
+        quantum_poincare_sweep,
+        scars_W,
+        scars_energy,
+    )
+    from qmps_torch.core.ode import odeint
+    from qmps_torch.kernels import _lib
+    from qmps_torch.mps.transfer import dominant_eigval_dense, transfer_dense
+    from qmps_torch.native import optimal_einsum_path, plan_total_flops
+    from qmps_torch.utils.flops import PEAK_F32 as FLOPS_PEAK_F32, mfu_fields, program_costs
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n, n_times, steps, inner, dtype = SCARS_N, SCARS_TIMES, SCARS_STEPS, SCARS_INNER, torch.float32
+    out = {}
+    _lib.reset_launches()
+
+    # the native planner on K6's network, beside chip_smoke's own count
+    ops6 = [list(idx) for _, idx in K6_NETWORK]
+    dims6 = {i: 2 for t in ops6 for i in t}
+    path6 = optimal_einsum_path(ops6, dims6, [])
+    mac6, mul6 = cheapest_contraction(K6_NETWORK)
+    plan6 = plan_total_flops(ops6, dims6, [])
+    print(f"native planner on K6's network: {len(path6) - 1} pairwise contractions, plan_total_flops {plan6}; "
+          f"cheapest_contraction {mac6} complex multiply-adds + {mul6} products")
+    require(isinstance(path6, list) and len(path6) == len(ops6) and plan6 > 0, "the native planner plans K6's network")
+    out["k6_plan_total_flops"] = plan6
+
+    # (a) starts on the energy shell of p0
+    p0_64 = torch.tensor(SCARS_P0, dtype=torch.float64, device=dev)
+    target = float(scars_energy(p0_64, SCARS_MU))
+    sync()
+    t0 = time.perf_counter()
+    starts = constant_energy_initial_conditions(0, n, SCARS_MU, target, steps=SCARS_SHELL_STEPS, device=dev).to(dtype)
+    sync()
+    t_shell = time.perf_counter() - t0
+    resid = (scars_energy(starts.double(), SCARS_MU) - target).abs()
+    print(f"(a) {n} starts on the <H({SCARS_MU})> = {target:.6f} shell ({SCARS_SHELL_STEPS} adam steps, "
+          f"{starts.dtype}) in {t_shell:.2f} s: largest shell residual {float(resid.max()):.3g} (float64 readout)")
+    require(bool(torch.isfinite(starts).all()) and bool(torch.isfinite(resid).all()), "the shell starts are finite")
+    out.update({"scars_shell_seconds": t_shell, "scars_shell_max_residual": float(resid.max())})
+
+    y0s = starts.double()
+    ts = torch.linspace(0, SCARS_T, n_times, dtype=torch.float64, device=dev)
+    rows = min(SCARS_ORACLE_ROWS, n)
+    y0_h, ts_h, halves = y0s[:rows].cpu().numpy(), ts.cpu().numpy(), (slice(0, rows // 2), slice(rows // 2, rows))
+    # the host's references, computed in spawned processes while the card
+    # runs (b) to (e)
+    with host_pool(4) as pool:
+        f_dop = [pool.submit(_dop853, y0_h[h], ts_h) for h in halves]
+        f_cpu = [pool.submit(_odeint_cpu, y0_h[h], ts_h) for h in halves]
+        f_q64 = pool.submit(_quantum_cpu, starts[:4].double().cpu().numpy(), steps, inner)
+
+        # (b) the classical ensemble on the example's grid, float64
+        classical_poincare_sweep(y0s[:2], ts[:3], SCARS_MU)  # untimed: first calls
+        sync()
+        t0 = time.perf_counter()
+        trajs = classical_poincare_sweep(y0s, ts, SCARS_MU)
+        sync()
+        t_cl = time.perf_counter() - t0
+        require(trajs.shape == (n, n_times, 4) and bool(torch.isfinite(trajs).all()),
+                "the classical ensemble is finite")
+        secs = poincare_sections(torch.remainder(trajs, 2 * math.pi))
+        n_secs = sum(len(x) for x in secs)
+        n_or = int((ts_h <= SCARS_ORACLE_T).sum())
+        tight = odeint(lambda y, t: classical_rhs(y, t, SCARS_MU), y0s[:rows], ts[:n_or], rtol=1e-12, atol=1e-12)
+        print(f"(b) classical ensemble, {n} trajectories x {n_times} times on [0, {float(ts[-1]):g}] (float64): "
+              f"{t_cl:.2f} s, {n * n_times / t_cl:.0f} trajectory points/s; {n_secs} Poincare section points "
+              f"(per trajectory: min {min(len(x) for x in secs)}, max {max(len(x) for x in secs)})")
+
+        # (c) one quantum trajectory against the classical equations
+        p0 = p0_64.to(dtype)
+        ev = ScarsEvolver(SCARS_MU, SCARS_DT, inner_steps=200, lr=1e-2)
+        sync()
+        t0 = time.perf_counter()
+        qtraj = ev.simulate(p0, steps)
+        sync()
+        t_one = time.perf_counter() - t0
+        tq = torch.arange(steps, dtype=torch.float64, device=dev) * SCARS_DT
+        ctraj = classical_trajectory(p0_64, tq, SCARS_MU)
+        err_one = float(wrapped_gap(qtraj.cpu().numpy(), torch.remainder(ctraj, 2 * math.pi).cpu().numpy()).max())
+        print(f"(c) ScarsEvolver(mu {SCARS_MU}, dt {SCARS_DT}, 200 inner steps, lr 1e-2).simulate(p0, {steps}) in "
+              f"{dtype}: {t_one:.2f} s, {(steps - 1) * 200 / t_one:.1f} inner steps/s; max wrapped-angle gap to the "
+              f"classical trajectory {err_one:.4g} (tol 0.05)")
+        require(err_one < 0.05, "one quantum scars trajectory within 0.05 of the classical equations")
+        out.update({"scars_trajectory_seconds": t_one, "scars_trajectory_classical_gap": err_one})
+
+        # (d) the quantum ensemble
+        quantum_poincare_sweep(starts[:2], SCARS_MU, SCARS_DT, 2, inner_steps=2)  # untimed: first calls
+        sync()
+        t0 = time.perf_counter()
+        qens = quantum_poincare_sweep(starts, SCARS_MU, SCARS_DT, steps, inner_steps=inner)
+        sync()
+        t_q = time.perf_counter() - t0
+        cl_q = torch.remainder(classical_poincare_sweep(y0s, tq, SCARS_MU), 2 * math.pi).cpu().numpy()
+        qens_h = qens.cpu().numpy()
+        dev_cl = wrapped_gap(qens_h, cl_q).max(axis=(1, 2))
+        dev_chart = chart_free_gap(qens_h, cl_q).max(axis=1)
+        # the states themselves: |x| of the quantum and classical cells'
+        # mixed transfer matrix, 1 where they agree, in any chart
+        with torch.no_grad():
+            q64, c64 = (torch.from_numpy(x).to(dev, torch.float64) for x in (qens_h, cl_q))
+            fid = dominant_eigval_dense(transfer_dense(blocked_tensor(q64), blocked_tensor(c64))).abs()
+        fid_row, off = fid.cpu().numpy().min(1), dev_cl > 1
+
+        # (b) and (d) against the host's references
+        ref_full = np.concatenate([f.result() for f in f_dop])
+        cpu_full = np.concatenate([f.result() for f in f_cpu])
+        ref64 = f_q64.result()
+    trajs_h = trajs[:rows].cpu().numpy()
+    gap_cpu = float(np.abs(trajs_h - cpu_full).max())
+    gap_full = float(np.abs(trajs_h - ref_full).max())
+    gap_or = float(np.abs(tight.movedim(0, 1).cpu().numpy() - ref_full[:, :n_or]).max())
+    print(f"(b) {rows} rows of the ensemble against the port's eager odeint on the CPU at the same tolerances "
+          f"{gap_cpu:.3g} (tol {SCARS_CPU_GATE:g}); against scipy DOP853 (rtol = atol = 1e-12) on the host: "
+          f"odeint at 1e-12 on t <= {SCARS_ORACLE_T:g} {gap_or:.3g} (tol 1e-6), the ensemble's default-tolerance "
+          f"rows over the whole horizon {gap_full:.3g} (tol 1e-2)")
+    require(gap_cpu < SCARS_CPU_GATE, f"the classical ensemble on the card against the CPU's ({SCARS_CPU_GATE:g})")
+    require(gap_or < 1e-6, "odeint on the card against DOP853 (1e-6)")
+    require(gap_full < 1e-2, "the classical ensemble against DOP853 over the horizon (1e-2)")
+    out.update({"scars_classical_seconds": t_cl, "scars_classical_points_per_second": n * n_times / t_cl,
+                "scars_poincare_points": n_secs, "scars_classical_cpu_gap": gap_cpu,
+                "scars_classical_oracle_error": gap_or, "scars_classical_horizon_error": gap_full})
+
+    gap32 = float(wrapped_gap(qens_h[:4], ref64).max())
+    n_inner = (steps - 1) * inner
+    print(f"(d) quantum ensemble, {n} trajectories x {steps} steps of {inner} inner steps (dt {SCARS_DT}, "
+          f"{dtype}): {t_q:.2f} s, {n_inner / t_q:.1f} inner steps/s, {n * (steps - 1) / t_q:.1f} trajectory "
+          f"steps/s; rows 0-3 against the port's float64 run on the CPU: max wrapped-angle gap {gap32:.3g} "
+          f"(tol {SCARS_F32_GATE:g}); each row's max gap to the classical ensemble (not gated): median "
+          f"{float(np.median(dev_cl)):.4g}, max {float(dev_cl.max()):.4g} ({int((dev_cl > 1).sum())} rows over 1, "
+          f"where a theta crossed 0 or pi); up to the bond gauges (th1, ph2) -> (-th1, ph2 + pi) and (th2, ph1) -> "
+          f"(-th2, ph1 + pi): median {float(np.median(dev_chart)):.4g}, max {float(dev_chart.max()):.4g}; the states' "
+          f"overlap a cell |x| at least {fid_row.min():.6f}, in the rows over 1 at least "
+          f"{fid_row[off].min() if off.any() else float('nan'):.6f}")
+    require(bool(np.isfinite(qens_h).all()) and gap32 < SCARS_F32_GATE,
+            f"the {dtype} quantum ensemble against float64 ({SCARS_F32_GATE:g})")
+    out.update({"scars_quantum_seconds": t_q, "scars_inner_steps_per_second": n_inner / t_q,
+                "scars_trajectory_steps_per_second": n * (steps - 1) / t_q, "scars_quantum_f32_gap": gap32,
+                "scars_quantum_classical_gap_median": float(np.median(dev_cl)),
+                "scars_quantum_classical_gap_max": float(dev_cl.max()),
+                "scars_quantum_classical_gauge_free_gap_max": float(dev_chart.max()),
+                "scars_quantum_classical_min_overlap": float(fid_row.min())})
+
+    # (e) one outer step under torch.profiler, and one inner step's MFU
+    W = scars_W(SCARS_MU, 4.0 * SCARS_DT)
+    ps = qens[:, -1].clone()
+    outer_ms = t_q / (steps - 1) * 1e3
+    q = ps.clone().requires_grad_()
+    adam_opt = torch.optim.Adam([q], lr=2e-2, fused=cuda)
+    cost = _cost_from(ps, W)
+
+    def inner_step():
+        adam_opt.zero_grad(set_to_none=True)
+        cost(q).sum().backward()
+        adam_opt.step()
+
+    inner_step()
+    costs = program_costs(inner_step)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        inner_step()
+    sync()
+    inner_s = (time.perf_counter() - t0) / 20
+    mfu = mfu_fields("scars_inner_step", costs["flops"], 1 / inner_s, FLOPS_PEAK_F32, costs["bytes"])
+    rate = costs["flops"] / inner_s
+    print(f"(e) one inner step: {inner_s * 1e3:.4f} ms (a mean of 20), {costs['flops']:.0f} product flops and "
+          f"{costs['bytes']:.0f} bytes dispatched (utils/flops.program_costs): {rate:.4g} flop/s, MFU "
+          f"{rate / FLOPS_PEAK_F32:.3g} of the float32 peak; {mfu}")
+    out.update({"scars_inner_step_ms": inner_s * 1e3, "scars_inner_step_flops_per_second": rate, **mfu})
+    if cuda:
+        host, busy, top, n_ops = device_breakdown(lambda: _tdvp_step(ps, W, inner, 2e-2), 1, host_ops=12)
+        idle = None if busy is None else 1 - busy / outer_ms
+        print(f"(e) one outer step ({inner} inner steps, {n} trajectories) under torch.profiler: {outer_ms:.2f} ms "
+              f"unprofiled (the mean of (d)), {host:.2f} profiled; {n_ops:.0f} device operations "
+              f"({n_ops / inner:.1f} an inner step); device busy "
+              + ("not measured (no kernel recorded)" if busy is None else
+                 f"{busy:.3f} ms, idle share {idle:.4f}; largest: " + "; ".join(f"{nm[:60]} {t:.4f} ms" for nm, t in top))
+              + f" (on {card})")
+        out.update({"scars_outer_step_ms": outer_ms, "scars_outer_step_device_ops": n_ops,
+                    "scars_outer_step_idle_share": idle})
+
+    launched = dict(_lib.launches)
+    print(f"phase 18 hand-kernel launches: {launched}")
+    require(not any(launched.values()), "the scars path launches no hand kernel")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1696,9 +2002,7 @@ def main() -> int:
         max_abs_err=max(max(e[:3]) for e in errs1.values()),
         ms=cuda_ms(launch1(K1_BATCH), 50),
         plain_ms=cuda_ms(lambda: _dominant_eig_plain(E, iters=K1_ITERS), 5),
-        # one call after a warm-up call: eig on CUDA tensors computes on the
-        # host (~30 s a call)
-        library_ms=cuda_ms(lambda: eig_dominant(E), 1),
+        library_ms=eig_library_ms(E),
     )
     results["K1"].update(zip(("bound_ms", "bound_by"), bound(*kernel_work("K1", K1_BATCH))))
     require(torch.equal(lam_o, lam) and torch.equal(v_o, v), "K1 timed launches reproduce its output")
@@ -2174,8 +2478,7 @@ def main() -> int:
         results[k] = dict(batch=BIG_BATCH, max_abs_err=max(max(e) for e in (errs7 if k == "K7" else errs8)),
                           ms=ms["E"], ms_e_edag_8192=ms["[E, E^dag]"],
                           plain_ms=cuda_ms(lambda: tpp._matrix_power_plain(E, TDVP_ITERS), 5 if k == "K7" else 2),
-                          # one call after a warm-up call: eig on CUDA tensors computes on the host
-                          library_ms=cuda_ms(lambda: eig_dominant(E), 1))
+                          library_ms=eig_library_ms(E))
         results[k].update(zip(("bound_ms", "bound_by"), bound(*kernel_work(k, BIG_BATCH))))
         results[k]["bound_ms_e_edag_8192"] = bound(*kernel_work(k, 2 * BIG_BATCH))[0]
         # the bound of the same work with the products on the CUDA cores
@@ -2308,6 +2611,11 @@ def main() -> int:
     noisy = noise_and_sampling(dev, card)
     print(f"phase 17 in {time.perf_counter() - t17:.1f} s")
 
+    # ---- 18. the scars Poincare ensembles ----
+    t18 = time.perf_counter()
+    scars = scars_path(dev, card)
+    print(f"phase 18 in {time.perf_counter() - t18:.1f} s")
+
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
         "K2": ("energy_fwd", "qmps_torch/csrc/energy_fused.cu", "qmps_tpu/kernels/energy_fused.py:271"),
@@ -2343,7 +2651,7 @@ def main() -> int:
                       **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},
                       **{f"tdvp_d{D}_value_error": e[0] for D, e in big_errs.items()},
                       **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}, **evo,
-                      **large, **classical, **charts, **noisy}))
+                      **large, **classical, **charts, **noisy, **scars}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -189,13 +189,14 @@ def scar_gate_ops(params):
 
 
 def scars_tensor(th, ph) -> torch.Tensor:
-    """Analytic MPS tensor A(theta, phi) of the scars ansatz (scars.py:69-72)."""
-    th, ph = g._angle(th), g._angle(ph)
+    """Analytic MPS tensor A(theta, phi) of the scars ansatz (scars.py:69-72):
+    (..., 2, 2, 2) for angles broadcast to (...)."""
+    th, ph = torch.broadcast_tensors(g._angle(th), g._angle(ph))
     ct = g.complex_type(th)
-    z = torch.zeros((), dtype=ct, device=th.device)
-    row0 = torch.stack([torch.stack([z, 1j * torch.exp(-1j * ph.to(ct))]), torch.stack([z, z])])
-    row1 = torch.stack([torch.stack([torch.cos(th).to(ct), z]), torch.stack([torch.sin(th).to(ct), z])])
-    return torch.stack([row0, row1])
+    z = torch.zeros(th.shape, dtype=ct, device=th.device)
+    row0 = torch.stack([torch.stack([z, 1j * torch.exp(-1j * ph.to(ct))], -1), torch.stack([z, z], -1)], -2)
+    row1 = torch.stack([torch.stack([torch.cos(th).to(ct), z], -1), torch.stack([torch.sin(th).to(ct), z], -1)], -2)
+    return torch.stack([row0, row1], -3)
 
 
 def _compiled(ops_fn):

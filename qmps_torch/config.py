@@ -17,11 +17,16 @@ card's float32 numerics can also run on the CPU).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: correctness types — tests and parity checks run in these.
 CDTYPE = torch.complex128
 RDTYPE = torch.float64
+
+#: their numpy twins, for host constants
+NP_CDTYPE = np.complex128
+NP_RDTYPE = np.float64
 
 #: speed types — what the CUDA kernels take.
 FAST_CDTYPE = torch.complex64

@@ -1,0 +1,1 @@
+from . import gates, lie, linalg, paulis  # noqa: F401

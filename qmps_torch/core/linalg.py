@@ -144,28 +144,41 @@ def _fro(M: torch.Tensor) -> torch.Tensor:
     return torch.linalg.matrix_norm(M)[..., None, None]
 
 
-def dominant_eig_dense(E: torch.Tensor, n_squarings: int = 40):
-    """Dominant eigenpair of (..., n, n) matrices by repeated squaring.
-
-    Returns (lam (...,), v (..., n)) with v unit-norm (arbitrary phase).
-    The start vector is vec(I) when n is a square (it has weight on the
-    fixed point of a transfer operator), else all ones, with the chirp as
-    the fallback where it was (near-)orthogonal to the dominant eigenspace.
-    """
-    n = E.shape[-1]
-    M = E / _fro(E)
-    for _ in range(n_squarings):
-        M = M @ M
-        M = M / _fro(M)
+def _start_read(M: torch.Tensor) -> torch.Tensor:
+    """The unit vector M v0 of a normalized power M: v0 = vec(I) when n is
+    a square (it has weight on the fixed point of a transfer operator),
+    else all ones, with the chirp where that was (near-)orthogonal to the
+    dominant eigenspace."""
+    n = M.shape[-1]
     d = math.isqrt(n)
     if d * d == n:
-        v0 = torch.eye(d, dtype=E.dtype, device=E.device).reshape(-1)
+        v0 = torch.eye(d, dtype=M.dtype, device=M.device).reshape(-1)
     else:
-        v0 = torch.ones(n, dtype=E.dtype, device=E.device)
+        v0 = torch.ones(n, dtype=M.dtype, device=M.device)
     v = M @ v0
-    alt = M @ _chirp(n, E.dtype, E.device)
+    alt = M @ _chirp(n, M.dtype, M.device)
     use_alt = torch.linalg.vector_norm(v, dim=-1) < 1e-8 * torch.linalg.vector_norm(alt, dim=-1)
     v = torch.where(use_alt[..., None], alt, v)
-    v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
+def dominant_eig_dense(E: torch.Tensor, n_squarings: int = 40, left: bool = False):
+    """Dominant eigenpair of (..., n, n) matrices by repeated squaring.
+
+    Returns (lam (...,), v (..., n)) with v unit-norm (arbitrary phase);
+    with ``left`` also the left vector w (E^dag w = conj(lam) w), read off
+    the conjugate transpose of the same power ((E^dag)^2 = (E^2)^dag), so
+    one chain serves both.  The chain runs as one batched product a
+    squaring over the flattened batch.
+    """
+    n = E.shape[-1]
+    M = (E / _fro(E)).reshape(-1, n, n)
+    for _ in range(n_squarings):
+        M = torch.bmm(M, M)
+        M = M / torch.linalg.vector_norm(M, dim=(-2, -1), keepdim=True)
+    M = M.reshape(E.shape)
+    v = _start_read(M)
     lam = (v.conj() * (E @ v[..., None])[..., 0]).sum(-1)
+    if left:
+        return lam, v, _start_read(M.mH)
     return lam, v

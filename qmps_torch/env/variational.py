@@ -29,6 +29,9 @@ from ..embed.unitaries import environment_to_unitary
 from ..mps import transfer as tr
 from ..optim.minimize import adam_steps, exponential_decay
 
+#: the reference's name for the brickwork M ansatz
+env_M_ansatz = env_M
+
 
 def reduced_density_matrix(psi: torch.Tensor, keep, n: int) -> torch.Tensor:
     """Partial trace of |psi><psi| keeping the qubits in ``keep`` (cirq

@@ -1,7 +1,9 @@
 """Exact-physics oracles in host numpy float64 (copies of
 ``qmps_tpu.ham.exact``'s quadratures):
 
-- ``tfim_gs_energy_f64(g)``: the TFIM ground-state energy per site;
+- ``tfim_gs_energy(g)``: the TFIM ground-state energy per site in torch,
+  in the caller's type and on its device; ``tfim_gs_energy_f64(g)``, its
+  host float64 twin;
 - ``loschmidt_rate(t, g0, g1)``: the exact rate function of a TFIM quench
   (qmps/exact_loschmidt.py:7-21);
 - ``xy_gs_energy()``: the XY chain's free-fermion energy -4/pi;
@@ -11,9 +13,11 @@
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 
 @lru_cache(maxsize=None)
@@ -23,6 +27,18 @@ def _gl_nodes(n: int = 256):
     k = (x + 1) * (np.pi / 2)
     w = w * (np.pi / 2)
     return k, w
+
+
+def tfim_gs_energy(g) -> torch.Tensor:
+    """E0 per site of H = -ZZ + g X, the quadrature of ``tfim_gs_energy_f64``
+    in torch: in g's type and on its device for a floating tensor, else in
+    float64 on the CPU (the JAX package's oracle computes in JAX's default
+    type)."""
+    if not (isinstance(g, torch.Tensor) and g.is_floating_point()):
+        g = torch.as_tensor(g, dtype=torch.float64)
+    k, w = (torch.as_tensor(x, dtype=g.dtype, device=g.device) for x in _gl_nodes())
+    eps = torch.sqrt(1.0 + g[..., None] ** 2 - 2.0 * g[..., None] * torch.cos(k))
+    return -(eps * w).sum(-1) / math.pi
 
 
 def tfim_gs_energy_f64(g) -> np.ndarray:

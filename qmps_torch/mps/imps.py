@@ -5,7 +5,9 @@ cells), the mixed gauge, Schmidt values, entropy and truncation, one- and
 two-site expectation values, correlators, the correlation length and the
 static structure factor, overlaps, the energy variance and the TDVP
 tangent ``dA_dt`` (mps/tdvp); ``Map`` and ``TransferMatrix``.  A tensor
-A has shape (d, D, D) = (physical, left, right); ``merge`` is batched over leading dimensions, the rest takes one state.
+A has shape (d, D, D) = (physical, left, right).  ``merge``, the 1-site
+canonical forms and ``E2`` of a one-tensor cell broadcast over leading
+dimensions (the scars ensemble's energies); the rest takes one state.
 
 Every fixed point enters a gauge or an observable rotated to hermitian,
 then hermitized and given unit trace (``_unit_trace_herm``).  A squaring
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..config import CDTYPE, resolve_device
 from ..core.linalg import dominant_eig_dense, rotate_to_hermitian, spectral_radius_dense
@@ -41,7 +44,7 @@ def _cholesky_psd(M: torch.Tensor) -> torch.Tensor:
     and the factorization fails (imps.py:42-52)."""
     M = (M + M.mH) / 2
     eps = 32 * torch.finfo(M.real.dtype).eps * _trace(M).real
-    return torch.linalg.cholesky(M + eps * torch.eye(M.shape[-1], dtype=M.dtype, device=M.device))
+    return torch.linalg.cholesky(M + eps[..., None, None] * torch.eye(M.shape[-1], dtype=M.dtype, device=M.device))
 
 
 def _qr_pos(mat: torch.Tensor):
@@ -55,17 +58,44 @@ def _qr_pos(mat: torch.Tensor):
     return Q * ph[None, :], R * ph.conj()[:, None]
 
 
+class _PinvTri(torch.autograd.Function):
+    """The cut SVD pseudo-inverse with the adjoint of the pseudo-inverse
+    itself, d(M+) = -M+ dM M+ + M+ M+^dag dM^dag (I - M M+) + (I - M+ M)
+    dM^dag M+^dag M+ (constant rank, Golub and Pereyra), in place of the
+    SVD's adjoint, whose 1/(s_i^2 - s_j^2) is 0/0 at degenerate singular
+    values: a left-canonical tensor's gauge matrix is a multiple of the
+    identity (the scars tensors, ``algorithms/scars``), where the JAX
+    package's gradient is NaN."""
+
+    @staticmethod
+    def forward(ctx, M, rcond):
+        u, s, vh = torch.linalg.svd(M, full_matrices=False)
+        cut = rcond * s[..., :1]
+        sinv = torch.where(s > cut, 1.0 / torch.maximum(s, cut), torch.zeros_like(s))
+        Y = vh.mH @ (sinv[..., :, None].to(M.dtype) * u.mH)
+        ctx.save_for_backward(M, Y)
+        return Y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, G):
+        M, Y = ctx.saved_tensors
+        eye_m = torch.eye(M.shape[-2], dtype=M.dtype, device=M.device)
+        eye_n = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+        Gh = G.mH
+        return (-Y.mH @ G @ Y.mH + (eye_m - M @ Y) @ Gh @ Y @ Y.mH
+                + Y.mH @ Y @ Gh @ (eye_n - Y @ M)), None
+
+
 def _pinv_tri(M: torch.Tensor, rcond: float | None = None) -> torch.Tensor:
     """SVD pseudo-inverse of a gauge matrix with a relative cutoff, by
     default eps**0.75 of the type (~7e-6 in float32, ~1e-12 in float64):
     the null directions of a rank-deficient gauge matrix are dropped
-    instead of inverted (imps.py:66-82)."""
-    u, s, vh = torch.linalg.svd(M)
+    instead of inverted (imps.py:66-82).  Differentiated as a
+    pseudo-inverse (``_PinvTri``)."""
     if rcond is None:
         rcond = float(torch.finfo(M.real.dtype).eps) ** 0.75
-    cut = rcond * s[0]
-    sinv = torch.where(s > cut, 1.0 / torch.clamp(s, min=cut), torch.zeros_like(s))
-    return vh.mH @ (sinv[:, None].to(M.dtype) * u.mH)
+    return _PinvTri.apply(M, rcond)
 
 
 def _unit_trace_herm(x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +103,7 @@ def _unit_trace_herm(x: torch.Tensor) -> torch.Tensor:
     hermitian matrix: the phase is removed before the average."""
     x = rotate_to_hermitian(x)
     x = (x + x.mH) / 2
-    return x / _trace(x)
+    return x / _trace(x)[..., None, None]
 
 
 def random_tensor(generator: torch.Generator | None = None, d: int = 2, D: int = 2,
@@ -94,7 +124,7 @@ def left_orthogonalise(A: torch.Tensor, dense: bool = True):
     """
     eta, l = tr.left_fixed_point(A, A, dense=dense)
     M = _cholesky_psd(_unit_trace_herm(l)).mH  # upper; l = M^dag M
-    AL = torch.einsum("ij,sjk,kl->sil", M, A, _pinv_tri(M)) / torch.sqrt(eta.real)
+    AL = torch.einsum("...ij,...sjk,...kl->...sil", M, A, _pinv_tri(M)) / torch.sqrt(eta.real)[..., None, None, None]
     return AL, M, eta
 
 
@@ -103,7 +133,7 @@ def right_orthogonalise(A: torch.Tensor, dense: bool = True):
     sum AR AR^dag = I and r = C C^dag the dominant right fixed point."""
     eta, r = tr.right_fixed_point(A, A, dense=dense)
     C = _cholesky_psd(_unit_trace_herm(r))
-    AR = torch.einsum("ij,sjk,kl->sil", _pinv_tri(C), A, C) / torch.sqrt(eta.real)
+    AR = torch.einsum("...ij,...sjk,...kl->...sil", _pinv_tri(C), A, C) / torch.sqrt(eta.real)[..., None, None, None]
     return AR, C, eta
 
 
@@ -111,7 +141,7 @@ def _expect(op: torch.Tensor, A: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """sum op[t, s] tr(A[s] r A[t]^dag): op's BRA index t pairs with the
     conjugated tensor (the "st" order computes <op^T>, wrong for Y)."""
     op = torch.as_tensor(op).to(A.device, A.dtype)
-    return torch.einsum("ts,sij,jk,tik->", op, A, r, A.conj())
+    return torch.einsum("...ts,...sij,...jk,...tik->...", op, A, r, A.conj())
 
 
 class iMPS:
@@ -261,8 +291,7 @@ class iMPS:
         is right when lambda_2 is a complex-conjugate pair."""
         AL, _, _ = left_orthogonalise(self.blocked)
         E = tr.transfer_dense(AL, AL)
-        lam1, v1 = dominant_eig_dense(E)
-        _, w1 = dominant_eig_dense(E.mH)
+        lam1, v1, w1 = dominant_eig_dense(E, left=True)
         w1 = w1 / torch.vdot(w1, v1).conj()
         ratio = spectral_radius_dense(E - lam1 * torch.outer(v1, w1.conj())) / lam1.abs()
         fi = torch.finfo(ratio.dtype)

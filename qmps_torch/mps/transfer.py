@@ -1,7 +1,8 @@
 """Transfer-operator fixed points (counterpart of ``qmps_tpu.mps.transfer``),
 batched over any leading dimensions.
 
-The right and left matvecs, the dense transfer matrix, the eigenvalue
+The right and left matvecs, the dense transfer matrix, the power
+iteration in operator form (``dominant_eig_power``), the eigenvalue
 with its rank-1 implicit adjoint (``dominant_eigval_dense``), the
 eigenpair in a holomorphic c^T v = 1 gauge with its bordered-solve
 adjoint (``dominant_eigpair_cgauge``), ``right_fixed_point`` and
@@ -43,13 +44,25 @@ def transfer_dense(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return E.reshape(E.shape[:-4] + (n, A.shape[-1] * B.shape[-1]))
 
 
+def dominant_eig_power(matvec, v0: torch.Tensor, iters: int = 200):
+    """Dominant eigenpair by power iteration in operator form: (lam, v)
+    with |v| = 1 and lam the Rayleigh quotient <v, matvec(v)>, which
+    converges where a complex dominant eigenvalue keeps rotating the
+    iterate's phase.  One tensor of any shape is one vector."""
+    v = v0 / torch.linalg.vector_norm(v0)
+    for _ in range(iters):
+        w = matvec(v)
+        v = w / torch.linalg.vector_norm(w)
+    return torch.vdot(v.flatten(), matvec(v).flatten()), v
+
+
 class _DominantEigval(torch.autograd.Function):
     @staticmethod
     def forward(ctx, E):
-        lam, v = dominant_eig_dense(E)
-        if ctx.needs_input_grad[0]:
-            _, w = dominant_eig_dense(E.mH)  # E^dag w = conj(lam) w
-            ctx.save_for_backward(v, w)
+        if not ctx.needs_input_grad[0]:
+            return dominant_eig_dense(E)[0]
+        lam, v, w = dominant_eig_dense(E, left=True)  # E^dag w = conj(lam) w
+        ctx.save_for_backward(v, w)
         return lam
 
     @staticmethod

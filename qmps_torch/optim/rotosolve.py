@@ -90,3 +90,4 @@ def rotosolve(loss: Callable, x0: torch.Tensor, n_sweeps: int = 100, double: boo
 
 def double_rotosolve(loss: Callable, x0: torch.Tensor, n_sweeps: int = 100):
     return rotosolve(loss, x0, n_sweeps, double=True)
+

@@ -637,3 +637,22 @@ def test_vumps_on_the_card_matches_the_cpu():
         e64 = host_energy_gauge_free(AL, h.real, f32_ref=e)
         assert -1e-6 < e64 - exact < 1e-4, (e64 - exact, e - exact)
         assert float(info["grad_norms"][-1]) < 1e-3, info["grad_norms"][-5:]
+
+
+@pytest.mark.cuda
+def test_odeint_graph_replay_matches_the_cpu():
+    """core/ode.odeint on the card replays its step as a CUDA graph (whose
+    warm-up runs steps after every row has arrived, which change nothing):
+    the scars equations from 8 starts on [0, 3] agree with the CPU's eager
+    run to 1e-10, and the rows step independently there too."""
+    from qmps_torch.algorithms.scars import classical_rhs
+    from qmps_torch.core.ode import odeint
+
+    dev = require_cuda()
+    y0s = torch.rand(8, 4, generator=torch.Generator().manual_seed(2), dtype=torch.float64) + 0.3
+    ts = torch.linspace(0.0, 3.0, 61, dtype=torch.float64)
+    cpu = odeint(lambda y, t: classical_rhs(y, t, 0.325), y0s, ts)
+    card = odeint(lambda y, t: classical_rhs(y, t, 0.325), y0s.to(dev), ts.to(dev)).cpu()
+    assert (card - cpu).abs().max() < 1e-10
+    one = odeint(lambda y, t: classical_rhs(y, t, 0.325), y0s[3:4].to(dev), ts.to(dev)).cpu()
+    assert (one[:, 0] - card[:, 3]).abs().max() < 1e-12

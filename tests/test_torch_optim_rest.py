@@ -11,10 +11,11 @@ import torch
 
 from _torch_parity import to_np
 from qmps_torch.optim import minimize as tm
-from qmps_torch.optim import rotosolve as trs
 from qmps_tpu.optim import minimize as jm
 
-jrs = importlib.import_module("qmps_tpu.optim.rotosolve")  # the package exports a function of that name
+# each package exports a function of the module's name
+trs = importlib.import_module("qmps_torch.optim.rotosolve")
+jrs = importlib.import_module("qmps_tpu.optim.rotosolve")
 
 
 def _sinusoid(lib):
