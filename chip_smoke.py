@@ -60,7 +60,8 @@ Phases (any failure exits non-zero, and nothing is caught):
      steps) against the exact rate, each path timed;
  11. K7 and K8 (the normalised power of N = D^2 > 4 matrices): random
      matrices scaled by 1/sqrt(N) at N = 9, 16 (K7), 25, 64 (K8 on the
-     tensor cores) and 256 (K8's device-memory path), one zero matrix in
+     tensor cores in one block an element), 81, 144 (1,001 each) and 256
+     (133; K8's tiles, ``matpow_tc_tiles_kernel``), one zero matrix in
      each set, and the real D = 4 and D = 8 TDVP transfer matrices of phase
      12's 4,096 pairs, E (4,096, the path's input) and [E, E^dag] (8,192,
      the input of earlier runs); every element's lam (2e-5) and v up to
@@ -69,14 +70,21 @@ Phases (any failure exits non-zero, and nothing is caught):
      and K8's kernels in the library's SASS (cuobjdump); kernel timed on
      both inputs, plain version and torch.linalg.eig on E (one call after
      a warm-up call on one matrix), K7's bound with its products on the tensor cores
-     and on the CUDA cores; K8's device-memory path timed at N = 256;
+     and on the CUDA cores; K8's tiles on the 133 x 256 set timed against
+     the plain bmm chain and one torch.linalg.eig + pick (against K8's
+     first design above N = 64, in an earlier tree, by ``qmps_torch/kernel_ab.py
+     --old``);
+     ``matpow_small_kernel`` (K7 below N = 13) timed on the D = 3
+     objective's 4,096 N = 9 matrices;
  12. main path, the batched D >= 3 TDVP objective: tdvp_objective_pallas
-     and its Bs-gradient on 4,096 pairs at D = 4 (K7) and D = 8 (K8) with a
-     per-pair gate, every element against the dense objective at
-     complex128 on the card (values 2e-5, gradients 2e-4 times max(1, the
-     element's largest |grad|)), one K7 or K8 launch a value and gradient,
-     on the 4,096 matrices E (the left vector is read off the same power),
-     and none in the backward, then 20 value-and-gradient calls timed;
+     and its Bs-gradient on 4,096 pairs at D = 4 (K7) and D = 8 (K8) and on
+     1,024 pairs at D = 16 (K8's tiles, N = 256; the point count of the
+     large-D sweeps) with a per-pair gate, every element against the dense
+     objective at complex128 on the card (values 2e-5, gradients 2e-4
+     times max(1, the element's largest |grad|)), one K7 or K8 launch a
+     value and gradient, on the matrices E (the left vector is read off
+     the same power), and none in the backward, then 20 value-and-gradient
+     calls timed;
  13. main path, evolve, one trajectory, in float32 (``evolve_pipeline``):
      loschmidt_echo_run 1.5 -> 0.2 at tests/test_evolve.py:50-60's size
      (20 steps to t = 0.8 of 100 adam steps, a 300-step L-BFGS ground
@@ -108,7 +116,8 @@ Phases (any failure exits non-zero, and nothing is caught):
  15. the classical uMPS path in float32 (``classical_umps``), no hand
      kernel (the counters show it): ``vumps_ground_state`` at D = 8 (250
      iterations, k 32) and ``vumps_ground_state_converged`` at D = 32 and
-     64 (tol 3e-4, chunks of 150 to 600, k 48, GMRES environments), each
+     64 (tol 3e-4, chunks of 150 to 600 at D = 32 and one chunk of 150 at
+     D = 64, k 48, GMRES environments), each
      after an untimed run of WARM_STEPS iterations, timed from a seeded
      generator, read back in
      float64 (``host_energy_gauge_free``) against the exact energy (in
@@ -179,13 +188,23 @@ Phases (any failure exits non-zero, and nothing is caught):
      (-th1, ph2 + pi) and (th2, ph1) to (-th2, ph1 + pi); (e) one inner
      step's time and MFU (``utils/flops.program_costs``), one outer step
      under torch.profiler; and the native planner's plan of K6's network
-     beside ``cheapest_contraction``.
+     beside ``cheapest_contraction``;
+ 19. sharded sweeps (``sharded_sweeps``, ``parallel/mesh``): (a) phase 5's
+     config-4 sweep and its represent step (K1-K3) run three ways, on
+     ``make_mesh()`` (every card), on a mesh of the card twice and
+     unsharded: every energy within 1e-6 of the unsharded run, both
+     sharded runs through phase 5's float64 readout gates, K1-K3 launched
+     by every shard; (b) phase 7's quench family cut to 5 outer steps (K4,
+     K5) on the card twice against unsharded, its rates within 1e-6; (c)
+     the wall times of each, not gated, with the card count.
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
 SXM peaks (``kernel_work``, ``bound``).  K1-K5's and K7-K8's operations
 are those of their functions, every squaring of a complex matrix counted
-in its three-product form (``csquare_flops``), K4 with one squaring chain
+in its three-product form (``csquare_flops``, also above N = 64: the
+bound of K8's tiles is their products on the tensor cores, with the
+CUDA-core figure beside it), K4 with one squaring chain
 for both eigenvectors; K6's those of the cheapest pairwise contraction
 order of its network (``cheapest_contraction``).  All run on the float32
 CUDA cores (67 TFLOP/s) but K7's and K8's products and K6's W product,
@@ -218,7 +237,14 @@ GS_STEPS, TDVP_ITERS, TDVP_BATCH = 300, 48, 65536
 # (qmps_tpu/kernels/pallas_power.py:514-516, scripts/tpu_pallas_grad_bench.py:
 # 27-28): 4,096 pairs, 48 squarings; D = 4 runs K7 (N = 16), D = 8 K8 (N = 64)
 BIG_BATCH, BIG_CALLS = 4096, 20
-BIG_DS = {4: ("K7", "matpow_small"), 8: ("K8", "matpow_large")}  # D -> the kernel and its counter
+# D -> (the kernel, its counter, the pairs); D = 16 runs K8's tiles (N = 256)
+# on 1,024 pairs, the point count of the large-D sweeps (StiefelSweepConfig)
+BIG_DS = {4: ("K7", "matpow_small", BIG_BATCH), 8: ("K8", "matpow_large", BIG_BATCH),
+          16: ("K8t", "matpow_large", 1024)}
+# phase 11: K8's tiles on random sets (N = 81, 144 and the timed 133 x 256)
+TILE_SETS, K8T_N = ((81, 1001), (144, 1001), (256, 133)), 256
+# phase 19: the quench family of phase 7 cut to 5 outer steps
+SHARD_QUENCH_STEPS = 5
 # the brickwork family (tests/test_brickwork.py:109-129, 171-205)
 BW_BATCH, BW_G0, BW_G1 = 65536, 1.5, 0.2
 # the single-trajectory evolve pipeline at the JAX test's own size
@@ -240,6 +266,10 @@ LARGE_D, LARGE_D_STEPS = 64, 150
 # vumps_step (k 48)
 VUMPS_DS, VUMPS_D8 = (8, 32, 64), {"iters": 250, "k": 32}
 VUMPS_CONV = {"tol": 3e-4, "chunk_iters": 150, "max_iters": 600, "k": 48, "env_solver": "gmres"}
+# D = 64 runs one chunk: its knee is at 8 iterations and its gradient never
+# reaches tol (5.8e-4 after 600), so iterations 151-600 moved no gate and
+# took ~110-145 s of the script's 1,200 on an H100
+VUMPS_D64_ITERS = 150
 TRAJ_G0, TRAJ_G1, TRAJ_T, TRAJ_STEPS, TRAJ_D, TRAJ_GS = 1.5, 0.2, 1.2, 1200, 8, 400
 DISP_G, DISP_D, DISP_ITERS, CROSS_DS = 1.5, 8, 200, (16, 24, 32)
 # phase 16: bench.py's `sweep` row (bench.py:229-270: D = 2 "suN", 4
@@ -402,9 +432,11 @@ def kernel_work(name, B, w_bytes=0):
         # written once, their products on the tensor cores
         "K7": (matpow_tc_flops(16, TDVP_ITERS)[1], 2 * 8 * 16 ** 2),
         "K8": (matpow_tc_flops(64, TDVP_ITERS)[1], 2 * 8 * 64 ** 2),
+        # K8's tiles at N = 256 (phase 11's set, phase 12's D = 16)
+        "K8t": (matpow_tc_flops(K8T_N, TDVP_ITERS)[1], 2 * 8 * K8T_N ** 2),
     }[name]
     tc = {"K7": lambda: matpow_tc_flops(16, TDVP_ITERS)[0], "K8": lambda: matpow_tc_flops(64, TDVP_ITERS)[0],
-          "K6": lambda: k6_flops()[1]}.get(name, lambda: 0)()
+          "K8t": lambda: matpow_tc_flops(K8T_N, TDVP_ITERS)[0], "K6": lambda: k6_flops()[1]}.get(name, lambda: 0)()
     return flops * B, nbytes * B + w_bytes, tc * B
 
 
@@ -1010,16 +1042,16 @@ def large_d_path(dev, card, pool):
     return out
 
 
-def big_tdvp_inputs(rng, D, dev):
-    """BIG_BATCH quench-like TDVP pairs at bond dimension D, complex64 on the
+def big_tdvp_inputs(rng, D, dev, n=BIG_BATCH):
+    """n quench-like TDVP pairs at bond dimension D, complex64 on the
     card: left-canonical A, B the nearest isometry to A + 0.03 noise
     (tests/test_pallas.py:143-161), W = expm(-i h(g1) 0.04) for g1 in
     [0.1, 0.4], one a pair."""
     from qmps_torch.parallel.sweep import tfim_matrix
 
-    A = left_canonical(rng, BIG_BATCH, D)
+    A = left_canonical(rng, n, D)
     B = near_isometry(rng, A, 0.03)
-    g1 = torch.from_numpy(rng.uniform(G1_MIN, G1_MAX, BIG_BATCH)).to(dev)
+    g1 = torch.from_numpy(rng.uniform(G1_MIN, G1_MAX, n)).to(dev)
     W = torch.linalg.matrix_exp(-1j * tfim_matrix(g1).to(torch.complex128) * (2 * DT))
     return [torch.as_tensor(t).to(dev, torch.complex64).contiguous() for t in (A, B, W)]
 
@@ -1055,7 +1087,8 @@ def matpow_check(tpp, tag, E):
 
 def sass_hmma(lib_path):
     """{symbol: HMMA instructions} of every K7 and K8 tensor-core kernel
-    (``matpow_tc_kernel``) in the library's SASS, by cuobjdump beside nvcc."""
+    (``matpow_tc_kernel``, ``matpow_tc_tiles_kernel``) in the library's
+    SASS, by cuobjdump beside nvcc."""
     from qmps_torch.kernels import _lib
 
     cuobjdump = str(Path(_lib._nvcc()).parent / "cuobjdump")
@@ -1064,7 +1097,7 @@ def sass_hmma(lib_path):
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-            if "matpow_tc_kernel" in name:
+            if "matpow_tc" in name:
                 counts[name] = 0
         elif name in counts and "HMMA" in line:
             counts[name] += 1
@@ -1105,7 +1138,9 @@ def classical_umps(dev, card, Ds=VUMPS_DS):
                 return AL, e, info, VUMPS_D8["iters"], -1
         else:
             def run(gen):
-                AL, _, e, info = vumps_ground_state_converged(h32, D, generator=gen, device=dev, **VUMPS_CONV)
+                AL, _, e, info = vumps_ground_state_converged(h32, D, generator=gen, device=dev,
+                                                              **{**VUMPS_CONV, "max_iters": VUMPS_D64_ITERS}
+                                                              if D == 64 else VUMPS_CONV)
                 return AL, e, info, info["total_iters"], info["iters_to_knee"]
         t0 = time.perf_counter()
         # the untimed chunk, cut to WARM_STEPS iterations: bench.py's
@@ -1914,6 +1949,96 @@ def scars_path(dev, card):
     return out
 
 
+def sharded_sweeps(dev, card, g64, params0):
+    """Phase 19: (a) phase 5's config-4 sweep and its represent step on
+    ``make_mesh()`` (every card), on a mesh of the card twice and
+    unsharded, each after an untimed run: energies within 1e-6 of the
+    unsharded run, phase 5's float64 readout gates, K1-K3 launched by every
+    shard; (b) phase 7's quench family, cut to SHARD_QUENCH_STEPS outer
+    steps, on the card twice against unsharded: rates within 1e-6, K4 and
+    K5 launched by both shards; (c) the wall times, not gated.  Returns
+    the metrics for the JSON line."""
+    from qmps_torch.algorithms.evolve import batched_quench_sweep
+    from qmps_torch.ham.classical_baselines import host_energy_d2
+    from qmps_torch.ham.exact import tfim_gs_energy_f64
+    from qmps_torch.kernels import _lib
+    from qmps_torch.kernels.pallas_power import dominant_eig_batched
+    from qmps_torch.parallel import make_mesh
+    from qmps_torch.parallel.mesh import Mesh, shard_over_sweep
+    from qmps_torch.parallel.sweep import sweep_ground_states_fused, tfim_matrix
+
+    def counts(**launched):
+        return {**dict.fromkeys(_lib.launches, 0), **launched}
+
+    n_cards = torch.cuda.device_count()
+    meshes = {"make_mesh()": make_mesh(), "the card twice": Mesh((dev, dev)), "unsharded": None}
+    h_host = tfim_matrix(torch.from_numpy(g64)).numpy()
+    exact = tfim_gs_energy_f64(g64)
+
+    def main_path(mesh):
+        t0 = time.perf_counter()
+        es, As = sweep_ground_states_fused(g64, steps=STEPS, lr=LR, momentum=MOMENTUM, restarts=RESTARTS, mesh=mesh)
+        torch.cuda.synchronize()
+        t_sweep = time.perf_counter() - t0
+        lam, _ = shard_over_sweep(lambda A: dominant_eig_batched(transfer(A), iters=K1_ITERS), mesh)(As)
+        torch.cuda.synchronize()
+        return es, As, lam, t_sweep
+
+    runs = {}
+    for tag, mesh in meshes.items():
+        main_path(mesh)  # untimed: the first call of each mesh
+        _lib.reset_launches()
+        runs[tag] = main_path(mesh)
+        n = 1 if mesh is None else len(mesh)
+        got = dict(_lib.launches)
+        require(got == counts(dominant_eig=n, energy_fwd=n * (STEPS + 1), energy_bwd=n * STEPS),
+                f"phase 19 {tag}: K1-K3 carried each of its {n} shards {got}")
+    out = {"shard_device_count": n_cards}
+    es_ref = runs["unsharded"][0].double()
+    for tag in ("make_mesh()", "the card twice"):
+        es, As, lam, t_sweep = runs[tag]
+        diff = (es.double() - es_ref).abs().max().item()
+        A_host = isometry_f64(As.cpu().numpy().astype(np.complex128))
+        err = np.array([host_energy_d2(A_host[b], h_host[b]) for b in range(N_POINTS)]) - exact
+        unit = (lam.abs() - 1).abs().max().item()
+        print(f"phase 19 sweep on {tag} ({len(meshes[tag])} shards, {n_cards} cards): {t_sweep:.4f} s against "
+              f"{runs['unsharded'][3]:.4f} s unsharded; |energy - unsharded| {diff:.3g} (tol 1e-6); float64 readout "
+              f"median {np.median(err):.4g}, max {err.max():.4g}, min {err.min():.4g}; represent ||lam|-1| {unit:.3g}")
+        require(es.shape == (N_POINTS,) and As.shape == (N_POINTS, 2, 2, 2) and es.is_cuda
+                and np.all(np.isfinite(err)), f"phase 19 {tag}: finite sweep output of the expected shapes")
+        require(diff < 1e-6, f"phase 19 {tag}: the energies of the unsharded run")
+        require(np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-9, f"phase 19 {tag}: sweep vs exact")
+        require(unit < 1e-5, f"phase 19 {tag}: represent step |lam| = 1")
+        key = "make_mesh" if tag == "make_mesh()" else "card_twice"
+        out.update({f"shard_sweep_seconds_{key}": t_sweep, f"shard_sweep_energy_diff_{key}": diff,
+                    f"shard_sweep_max_error_{key}": float(err.max())})
+    out["shard_sweep_seconds_unsharded"] = runs["unsharded"][3]
+
+    g1 = np.linspace(G1_MIN, G1_MAX, N_G1)
+    n_inner = SHARD_QUENCH_STEPS * INNER
+    rates = {}
+    for tag in ("unsharded", "the card twice"):
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        _, les = batched_quench_sweep(G0, g1, t_max=SHARD_QUENCH_STEPS * DT, n_steps=SHARD_QUENCH_STEPS,
+                                      inner_steps=INNER, lr=QUENCH_LR, params0=params0, engine="pallas",
+                                      pallas_iters=TDVP_ITERS, mesh=meshes[tag])
+        torch.cuda.synchronize()
+        n = 1 if meshes[tag] is None else 2
+        rates[tag] = (-torch.log(les.double()), time.perf_counter() - t0)
+        got = dict(_lib.launches)
+        require(got == counts(tdvp_fwd=n * n_inner, tdvp_bwd=n * n_inner), f"phase 19 quench on {tag}: {got}")
+    diff_q = (rates["the card twice"][0] - rates["unsharded"][0]).abs().max().item()
+    print(f"phase 19 quench family ({N_G1} g1, {SHARD_QUENCH_STEPS} x {INNER} inner steps) on the card twice: "
+          f"{rates['the card twice'][1]:.4f} s against {rates['unsharded'][1]:.4f} s unsharded (first calls); "
+          f"|rate - unsharded| {diff_q:.3g} (tol 1e-6) on {card}")
+    require(bool(torch.isfinite(rates["the card twice"][0]).all()) and diff_q < 1e-6,
+            "phase 19: the sharded quench's rates equal the unsharded run's")
+    out.update(shard_quench_seconds_card_twice=rates["the card twice"][1],
+               shard_quench_seconds_unsharded=rates["unsharded"][1], shard_quench_rate_diff=diff_q)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1922,6 +2047,7 @@ def main() -> int:
         # the script alone, outside a checkout: there is no port to drive
         print("chip_smoke: no qmps_torch beside this script; run it from the repo's root", file=sys.stderr)
         return 1
+    from qmps_torch import kernel_ab
     from qmps_torch.algorithms.evolve import batched_quench_sweep
     from qmps_torch.algorithms.ground_state import find_ground_state
     from qmps_torch.circuits.ansatze import shallow_full_state
@@ -2436,7 +2562,7 @@ def main() -> int:
     # ---- 11. K7, K8 against their plain versions ----
     t11 = time.perf_counter()
     rng = np.random.default_rng(11)
-    big = {D: big_tdvp_inputs(rng, D, dev) for D in BIG_DS}  # phase 12's inputs too
+    big = {D: big_tdvp_inputs(rng, D, dev) for D in (4, 8)}  # phase 12's inputs too
     E_big = {}  # D -> (E, the path's 4,096 matrices; [E, E^dag], the 8,192 of earlier runs)
     for D, (A, B, W) in big.items():
         E = transfer_dense(*mixed_transfer_with_gate(A, B, W)).contiguous()
@@ -2446,20 +2572,21 @@ def main() -> int:
     errs7 += [matpow_check(tpp, f"D = 4 TDVP {t}", X) for t, X in zip(tags, E_big[4])]
     errs8 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (25, 64)]
     errs8 += [matpow_check(tpp, f"D = 8 TDVP {t}", X) for t, X in zip(tags, E_big[8])]
-    tc = errs8[:]  # the tensor-core path's
-    E256 = random_matrices(rng, 256, 133, dev)
-    errs8.append(matpow_check(tpp, "random, device-memory path", E256))
+    tiles = {N: random_matrices(rng, N, n, dev) for N, n in TILE_SETS}
+    errs8t = [matpow_check(tpp, "random, tiles", X) for X in tiles.values()]
     print(f"K8 on the tensor cores (3xTF32), largest errors against complex128: random N = 64 lam "
           f"{errs8[1][0]:.3g}, v {errs8[1][1]:.3g}; over N = 25, 64 and the D = 8 matrices lam "
-          f"{max(e[0] for e in tc):.3g}, v {max(e[1] for e in tc):.3g}. The CUDA-core K8 of earlier runs: "
-          f"lam 6.5e-7, v 1.3e-6 at random N = 64 (PERF.md)")
+          f"{max(e[0] for e in errs8):.3g}, v {max(e[1] for e in errs8):.3g}; K8's tiles over N = 81, 144, 256 "
+          f"lam {max(e[0] for e in errs8t):.3g}, v {max(e[1] for e in errs8t):.3g}. The CUDA-core K8 of earlier "
+          f"runs: lam 6.5e-7, v 1.3e-6 at random N = 64 (PERF.md)")
     hmma = sass_hmma(path)
     print("K7/K8 SASS (cuobjdump -sass): " + "; ".join(f"{n} {c} HMMA" for n, c in sorted(hmma.items())))
-    # one kernel a padded size: 16 (K7), 32, 48, 64 (K8)
-    require(len(hmma) == 4 and min(hmma.values()) > 0, f"K7's and K8's kernels run on the tensor cores {hmma}")
+    # one kernel a padded size: 16 (K7), 32, 48, 64 (K8), and K8's tiles
+    require(len(hmma) == 5 and min(hmma.values()) > 0, f"K7's and K8's kernels run on the tensor cores {hmma}")
     # kernel times on both inputs: raw launches into a preallocated output,
     # then checked against the wrapper's
-    for D, (k, _) in BIG_DS.items():
+    for D in (4, 8):
+        k = BIG_DS[D][0]
         E, E2 = E_big[D]
         N = E.shape[-1]
 
@@ -2489,23 +2616,56 @@ def main() -> int:
               f"torch.linalg.eig + pick {results[k]['library_ms']:.1f} ms, bound {results[k]['bound_ms']:.5f} ms "
               f"({results[k]['bound_by']}, the products on the tensor cores; on the CUDA cores "
               f"{results[k]['bound_ms_cuda_cores']:.5f} ms) on E")
-    # K8's device-memory path (matpow_global_kernel, N > 64) on the N = 256
-    # set: raw launches into a preallocated output and workspace
+    # K8's tiles (N > 64) on the 133 x 256 set through kernel_ab's launcher:
+    # raw launches into a preallocated output and one workspace
+    E256 = tiles[K8T_N]
     n256 = E256.shape[0]
     M256 = tpp._matrix_power_cuda(E256, TDVP_ITERS)
-    M256_o, work256 = torch.empty_like(M256), torch.empty_like(E256)
-    ms_g = cuda_ms(lambda: lib.qmps_matpow_large(E256.data_ptr(), M256_o.data_ptr(), work256.data_ptr(), n256, 256,
-                                                 TDVP_ITERS, stream), 3)
-    require(torch.equal(M256_o, M256), "K8's device-memory path: timed launches reproduce its output")
-    results["K8"].update(batch_global_n256=n256, ms_global_n256=ms_g,
-                         bound_ms_global_n256=bound(matpow_flops(256, TDVP_ITERS) * n256, 2 * 8 * 256 ** 2 * n256)[0])
-    print(f"K8 device-memory path ({n256} x 256x256, {TDVP_ITERS} squarings): {ms_g:.4f} ms, bound "
-          f"{results['K8']['bound_ms_global_n256']:.4f} ms (operations, float32 CUDA cores)")
+    work256 = torch.empty(tpp.matpow_work_floats(n256, K8T_N), dtype=torch.float32, device=dev)
+    M256_o = torch.empty_like(E256)
+    ms256 = cuda_ms(kernel_ab.matpow_large_launcher(lib, E256, M256_o, work256, TDVP_ITERS, stream), 3)
+    require(torch.equal(M256_o, M256), "K8's tiles: timed launches reproduce the wrapper's output")
+    results["K8t"] = dict(batch=n256, n=K8T_N, max_abs_err=max(max(e) for e in errs8t), ms=ms256,
+                          plain_ms=cuda_ms(lambda: tpp._matrix_power_plain(E256, TDVP_ITERS), 2),
+                          library_ms=eig_library_ms(E256))
+    results["K8t"].update(zip(("bound_ms", "bound_by"), bound(*kernel_work("K8t", n256))))
+    results["K8t"]["bound_ms_cuda_cores"] = bound(matpow_flops(K8T_N, TDVP_ITERS) * n256,
+                                                  kernel_work("K8t", n256)[1])[0]
+    r8t = results["K8t"]
+    print(f"K8's tiles ({n256} x {K8T_N}x{K8T_N}, {TDVP_ITERS} squarings): {ms256:.4f} ms; plain bmm chain "
+          f"{r8t['plain_ms']:.4f} ms, torch.linalg.eig + pick {r8t['library_ms']:.1f} ms; bound "
+          f"{r8t['bound_ms']:.4f} ms ({r8t['bound_by']}, the products on the tensor cores; on the CUDA cores "
+          f"{r8t['bound_ms_cuda_cores']:.4f} ms)")
+    # K7 below N = 13 (matpow_small_kernel, on the CUDA cores) on the D = 3
+    # objective's 4,096 E, drawn from a generator of its own
+    E3 = transfer_dense(*mixed_transfer_with_gate(*big_tdvp_inputs(np.random.default_rng(113), 3, dev)))
+    E3 = E3.contiguous()
+    errs7.append(matpow_check(tpp, "D = 3 TDVP E (matpow_small_kernel)", E3))
+    results["K7"]["max_abs_err"] = max(max(e) for e in errs7)
+    M3 = tpp._matrix_power_cuda(E3, TDVP_ITERS)
+    M3_o = torch.empty_like(M3)
+
+    def launch_small():
+        lib.qmps_matpow_small(E3.data_ptr(), M3_o.data_ptr(), BIG_BATCH, 9, TDVP_ITERS, stream)
+
+    ms3, ms3_q = cuda_ms(launch_small, 50), cuda_ms(launch_small, 50, queued=True)
+    require(torch.equal(M3_o, M3), "matpow_small_kernel: timed launches reproduce its output (D = 3)")
+    nbytes3 = 2 * 8 * 81 * BIG_BATCH
+    tc3 = matpow_tc_flops(9, TDVP_ITERS)
+    results["K7"].update(ms_small_n9=ms3, device_ms_small_n9=ms3_q,
+                         bound_ms_small_n9=bound(matpow_flops(9, TDVP_ITERS) * BIG_BATCH, nbytes3)[0],
+                         bound_ms_small_n9_tensor_cores=bound(tc3[1] * BIG_BATCH, nbytes3, tc3[0] * BIG_BATCH)[0])
+    r7 = results["K7"]
+    print(f"matpow_small_kernel (K7 below N = 13) on the D = 3 objective's {BIG_BATCH} E (9x9): raw {ms3:.5f} ms, "
+          f"queued {ms3_q:.5f} ms; bound {r7['bound_ms_small_n9']:.5f} ms on the CUDA cores "
+          f"({r7['bound_ms_small_n9'] / ms3_q:.1%} of it), {r7['bound_ms_small_n9_tensor_cores']:.5f} ms with the "
+          f"products on the tensor cores")
     print(f"phase 11 in {time.perf_counter() - t11:.1f} s")
 
     # ---- 12. main path, the batched D >= 3 TDVP objective at 4,096 ----
     launches_12, big_rates, big_errs, big_idle = {}, {}, {}, {}
-    for D, (k, name) in BIG_DS.items():
+    big[16] = big_tdvp_inputs(np.random.default_rng(12), 16, dev, BIG_DS[16][2])
+    for D, (k, name, n_pairs) in BIG_DS.items():
         A, B, W = big[D]
 
         def value_and_grad():
@@ -2515,8 +2675,8 @@ def main() -> int:
             val.sum().backward()
             return val.detach(), Bg.grad, n_fwd
 
-        # the batch each K7/K8 launch is given: the 4,096 matrices E, whose
-        # one power gives both eigenvectors
+        # the batch each K7/K8 launch is given: the matrices E, whose one
+        # power gives both eigenvectors
         batches, power_cuda = [], tpp._matrix_power_cuda
         tpp._matrix_power_cuda = lambda X, iters: batches.append(X.shape[0]) or power_cuda(X, iters)
         _lib.reset_launches()
@@ -2526,20 +2686,20 @@ def main() -> int:
         n_all = dict(_lib.launches)
         require(n_fwd == n_all == counts(**{name: 1}),
                 f"D = {D}: one {k} launch a value and gradient, none in the backward ({n_fwd}, {n_all})")
-        require(batches == [BIG_BATCH], f"D = {D}: {k} launched on {batches} matrices, not {BIG_BATCH}")
+        require(batches == [n_pairs], f"D = {D}: {k} launched on {batches} matrices, not {n_pairs}")
         B64 = B.to(c128).requires_grad_()
         ref = tdvp_objective(A.to(c128), B64, W.to(c128))  # the dense path, dominant_eigval_dense
         ref.sum().backward()
         err_val = (val.double() - ref.detach()).abs().max().item()
-        d = (grad.to(c128) - B64.grad).abs().reshape(BIG_BATCH, -1).max(1).values
-        sc = B64.grad.abs().reshape(BIG_BATCH, -1).max(1).values.clamp(min=1.0)
+        d = (grad.to(c128) - B64.grad).abs().reshape(n_pairs, -1).max(1).values
+        sc = B64.grad.abs().reshape(n_pairs, -1).max(1).values.clamp(min=1.0)
         err_grad = (d / sc).max().item()
         big_errs[D] = (err_val, err_grad)
-        print(f"TDVP objective D = {D} ({BIG_BATCH}, batched W, one {k} launch on {batches[0]} matrices): "
+        print(f"TDVP objective D = {D} ({n_pairs}, batched W, one {k} launch on {batches[0]} matrices): "
               f"|d value| {err_val:.3g} (tol 2e-5), "
               f"|d grad|/max(1,|grad|) {err_grad:.3g} (tol 2e-4), |grad| up to {sc.max().item():.4g}; "
               f"values in [{ref.min().item():.6f}, {ref.max().item():.6f}]")
-        require(val.shape == (BIG_BATCH,) and bool(torch.isfinite(val).all() and torch.isfinite(
+        require(val.shape == (n_pairs,) and bool(torch.isfinite(val).all() and torch.isfinite(
             torch.view_as_real(grad)).all()), f"D = {D}: finite value and gradient of the expected shapes")
         require(err_val < 2e-5 and err_grad < 2e-4, f"D = {D} objective against the dense path")
         value_and_grad()  # warm-up
@@ -2552,10 +2712,10 @@ def main() -> int:
         dt12 = time.perf_counter() - t0
         n_timed = dict(_lib.launches)
         require(n_timed == counts(**{name: BIG_CALLS}), f"D = {D}: launches of the timed calls {n_timed}")
-        launches_12[name] = n_all[name] + n_timed[name]
-        big_rates[D] = BIG_CALLS * BIG_BATCH / dt12
+        launches_12[k] = n_all[name] + n_timed[name]
+        big_rates[D] = BIG_CALLS * n_pairs / dt12
         call_ms = dt12 * 1e3 / BIG_CALLS
-        print(f"TDVP objective D = {D}: {BIG_CALLS} value-and-gradient calls of {BIG_BATCH} in {dt12:.4f} s "
+        print(f"TDVP objective D = {D}: {BIG_CALLS} value-and-gradient calls of {n_pairs} in {dt12:.4f} s "
               f"({call_ms:.4f} ms a call), {big_rates[D]:.4g} objectives/s on {card}")
         # device busy from the profiler, over the unprofiled time of a call
         host_ms, busy_ms, top, _ = device_breakdown(value_and_grad, 5)
@@ -2564,6 +2724,17 @@ def main() -> int:
               + ("not measured (no kernel recorded)" if busy_ms is None else
                  f"{busy_ms:.4f} ms, idle share {big_idle[D]:.4f} of the unprofiled call; largest: "
                  + "; ".join(f"{n[:60]} {t:.4f} ms" for n, t in top)))
+        if k == "K8t":  # K8's tiles at the path's own batch: raw launches into a preallocated output
+            E16 = transfer_dense(*mixed_transfer_with_gate(A, B, W)).contiguous()
+            M16 = tpp._matrix_power_cuda(E16, TDVP_ITERS)
+            M16_o = torch.empty_like(M16)
+            work16 = torch.empty(tpp.matpow_work_floats(n_pairs, K8T_N), dtype=torch.float32, device=dev)
+            ms16 = cuda_ms(kernel_ab.matpow_large_launcher(lib, E16, M16_o, work16, TDVP_ITERS, stream), 3)
+            require(torch.equal(M16_o, M16), "K8's tiles: timed launches reproduce the wrapper's output (D = 16)")
+            results["K8t"].update(batch_main=n_pairs, ms_main=ms16, bound_ms_main=bound(*kernel_work("K8t", n_pairs))[0])
+            print(f"K8's tiles on the D = 16 objective's {n_pairs} E: {ms16:.4f} ms, bound "
+                  f"{results['K8t']['bound_ms_main']:.4f} ms")
+            del E16, M16, M16_o, work16
 
     # ---- 13. main path, evolve: the single-trajectory pipeline (float32) ----
     t13 = time.perf_counter()
@@ -2616,6 +2787,11 @@ def main() -> int:
     scars = scars_path(dev, card)
     print(f"phase 18 in {time.perf_counter() - t18:.1f} s")
 
+    # ---- 19. sharded sweeps: the config-4 sweep and the quench family ----
+    t19 = time.perf_counter()
+    sharded = sharded_sweeps(dev, card, g64, gs.params)
+    print(f"phase 19 in {time.perf_counter() - t19:.1f} s")
+
     names = {
         "K1": ("dominant_eig", "qmps_torch/csrc/pallas_power.cu", "qmps_tpu/kernels/pallas_power.py:168"),
         "K2": ("energy_fwd", "qmps_torch/csrc/energy_fused.cu", "qmps_tpu/kernels/energy_fused.py:271"),
@@ -2626,14 +2802,16 @@ def main() -> int:
                "qmps_tpu/kernels/brickwork_pallas.py:34"),
         "K7": ("matpow_small", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:245"),
         "K8": ("matpow_large", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:332"),
+        # K8 above N = 64: its launches are phase 12's D = 16 run's (the counter matpow_large)
+        "K8t": ("matpow_tc_tiles", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:332"),
     }
     # each kernel's launches in the runs of its own main path (phase 5, 7, 9
     # or 12: the checked call and the timed ones)
     all_launches = {**launches, "tdvp_fwd": launches_q["tdvp_fwd"], "tdvp_bwd": launches_q["tdvp_bwd"],
-                    "brickwork_overlap": launches_5["brickwork_overlap"], **launches_12}
+                    "brickwork_overlap": launches_5["brickwork_overlap"]}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": all_launches[name], **results[k]}
+         "launches": launches_12[k] if k in launches_12 else all_launches[name], **results[k]}
         for k, (name, src, rep) in names.items()
     ]
     print(json.dumps({"kernels": kernels, "sweep_seconds": dt, "points_per_second": N_POINTS / dt,
@@ -2651,7 +2829,7 @@ def main() -> int:
                       **{f"tdvp_d{D}_device_idle_share": r for D, r in big_idle.items()},
                       **{f"tdvp_d{D}_value_error": e[0] for D, e in big_errs.items()},
                       **{f"tdvp_d{D}_scaled_grad_error": e[1] for D, e in big_errs.items()}, **evo,
-                      **large, **classical, **charts, **noisy, **scars}))
+                      **large, **classical, **charts, **noisy, **scars, **sharded}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

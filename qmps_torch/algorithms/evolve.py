@@ -19,8 +19,10 @@ adam loop warm-started from the current parameters.
   one batch; ``noisy_loschmidt_echo_run``: the same study one stepper a
   level (scripts/loschmidt.py:335-382).
 
-The JAX package's ``chunk``, ``mesh`` and compiled-step cache are TPU
-compile workarounds and have no counterpart here.
+The two batched sweeps take the JAX package's ``mesh``
+(``parallel/mesh.py``): the trajectories are split over its devices.  Its
+``chunk`` and compiled-step cache are TPU compile workarounds and have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from ..mps.transfer import right_fixed_point
 from ..objectives.noise import noisy_tdvp_objective
 from ..objectives.overlap import tdvp_objective, tdvp_objective_pallas
 from ..optim.minimize import adam_steps
+from ..parallel.mesh import shard_over_sweep
 from ..parallel.sweep import tfim_matrix
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .ground_state import find_ground_state
@@ -205,6 +208,7 @@ def batched_quench_sweep(
     gs_steps: int = 300,
     lr: float = 3e-2,
     generator: torch.Generator | None = None,
+    mesh=None,
     params0=None,
     engine: str = "dense",
     pallas_iters: int = 48,
@@ -222,7 +226,9 @@ def batched_quench_sweep(
 
     ``params0`` (15,) is the initial state's parameters; without it the
     ground state of tfim(g0) is found first (L-BFGS, ``gs_steps``,
-    ``generator``).  ``device`` defaults to g1s's for a tensor, else to the
+    ``generator``).  ``mesh`` (``parallel.mesh``) splits the trajectories
+    over its devices; each advances as it would in one batch (adam acts
+    row by row).  ``device`` defaults to g1s's for a tensor, else to the
     card (``config.resolve_device``).  The precision is float32 if
     ``params0`` or else ``g1s`` is a float32 tensor (so the card's numerics
     run on the CPU too), else by device: float64 on the CPU, float32 on
@@ -248,27 +254,28 @@ def batched_quench_sweep(
     def u2t(p):
         return unitary_to_tensor(ansatze.shallow_full_state(p))
 
-    if engine == "pallas":
-        def objective(As, Bs):
-            return tdvp_objective_pallas(As, Bs, Ws, pallas_iters)
-    else:
-        def objective(As, Bs):
-            return tdvp_objective(As, Bs, Ws)
+    objective = tdvp_objective_pallas if engine == "pallas" else tdvp_objective
+    extra = (pallas_iters,) if engine == "pallas" else ()
 
-    n = g1s.shape[0]
-    ps = params0.expand(n, -1).clone()
-    with torch.no_grad():
-        A0 = u2t(params0).expand(n, 2, 2, 2)
-    les = []
-    for _ in range(n_steps):
+    def trajectories(ps, Ws):
+        """The overlap densities (n, n_steps) of the trajectories of a
+        block of rows, on its device."""
+        n = ps.shape[0]
         with torch.no_grad():
-            As = u2t(ps)
-        ps = _warm_started_minimize(lambda q: objective(As, u2t(q)).sum(), ps, inner_steps, lr)
-        with torch.no_grad():
-            ov, _ = right_fixed_point(u2t(ps), A0)
-        les.append(ov.abs().square())
+            A0 = u2t(params0.to(ps.device)).expand(n, 2, 2, 2)
+        les = []
+        for _ in range(n_steps):
+            with torch.no_grad():
+                As = u2t(ps)
+            ps = _warm_started_minimize(lambda q: objective(As, u2t(q), Ws, *extra).sum(), ps, inner_steps, lr)
+            with torch.no_grad():
+                ov, _ = right_fixed_point(u2t(ps), A0)
+            les.append(ov.abs().square())
+        return torch.stack(les, dim=1)
+
+    les = shard_over_sweep(trajectories, mesh)(params0.expand(g1s.shape[0], -1).clone(), Ws)
     times = torch.arange(1, n_steps + 1, dtype=rdtype, device=device) * dt
-    return times, torch.stack(les, dim=1)
+    return times, les
 
 
 class NoisyMPSTimeEvolve(MPSTimeEvolve):
@@ -286,13 +293,14 @@ class NoisyMPSTimeEvolve(MPSTimeEvolve):
 
 
 def batched_noise_sweep(g0: float, g1: float, t_max: float, n_steps: int, noise_levels, inner_steps: int = 80,
-                        gs_steps: int = 300, lr: float = 3e-2, generator: torch.Generator | None = None,
+                        gs_steps: int = 300, lr: float = 3e-2, generator: torch.Generator | None = None, mesh=None,
                         device=None):
     """The reference's production noise study (scripts/loschmidt.py:335-382,
     one cluster job per depolarizing probability) in lockstep: the ground
     state of tfim(g0) (L-BFGS, ``gs_steps``, the full15 ansatz, the guess
     from ``generator``) quenched to tfim(g1), every noise level advancing
-    as one row of an (L, 15) parameter tensor (``_noise_sweep_from``).
+    as one row of an (L, 15) parameter tensor (``_noise_sweep_from``), the
+    levels split over the devices of ``mesh`` (``parallel.mesh``).
     ``device`` defaults to ``noise_levels``' for a tensor, else to the card
     (``config.resolve_device``); a float32 ``noise_levels`` tensor sets
     float32, else the device sets the precision.
@@ -301,52 +309,61 @@ def batched_noise_sweep(g0: float, g1: float, t_max: float, n_steps: int, noise_
     |<psi_0|psi_t>|^2 of the evolved pure parametrized state (the noise
     shapes the optimization landscape, as in the reference)."""
     return _batched_noise_sweep(g0, g1, t_max, n_steps, noise_levels, inner_steps, gs_steps, lr, generator,
-                                device)[:2]
+                                device, mesh)[:2]
 
 
-def _batched_noise_sweep(g0, g1, t_max, n_steps, noise_levels, inner_steps, gs_steps, lr, generator, device):
+def _batched_noise_sweep(g0, g1, t_max, n_steps, noise_levels, inner_steps, gs_steps, lr, generator, device,
+                         mesh=None):
     """``batched_noise_sweep``, returning also the final parameters (L, 15)
     and the ground state's (15,): (times, rates, final, ground state)."""
     device = resolve_device(device, noise_levels)
     _, rdtype = default_dtypes(device, like=noise_levels)
     params0 = find_ground_state(tfim(g0), D=2, ansatz="full15", method="lbfgs", steps=gs_steps,
                                 generator=generator, device=device).params.to(rdtype)
-    return _noise_sweep_from(params0, g1, t_max, n_steps, noise_levels, inner_steps, lr) + (params0,)
+    return _noise_sweep_from(params0, g1, t_max, n_steps, noise_levels, inner_steps, lr, mesh) + (params0,)
 
 
 def _noise_sweep_from(params0: torch.Tensor, g1: float, t_max: float, n_steps: int, noise_levels,
-                      inner_steps: int = 80, lr: float = 3e-2):
+                      inner_steps: int = 80, lr: float = 3e-2, mesh=None):
     """``batched_noise_sweep`` from the initial parameters ``params0`` (15,)
     on their device and in their precision: per outer step of dt = t_max /
     n_steps, ``inner_steps`` constant-rate adam steps from a fresh state of
     the summed noisy objective (adam is elementwise, so each row descends
     as it would alone, as the JAX package's vmap does; W = expm(-i h(g1)
     2 dt) on the host in complex128), then each row's overlap density with
-    the initial state.  Returns (times, rates, the final parameters (L,
-    15))."""
+    the initial state; the levels split over the devices of ``mesh``.
+    Returns (times, rates, the final parameters (L, 15))."""
     cdtype = complex_type(params0)
     device = params0.device
     ps_noise = torch.as_tensor(noise_levels, dtype=torch.float64).to(device, params0.dtype)
     dt = t_max / n_steps
-    W = torch.from_numpy(scipy.linalg.expm(-1j * tfim(g1).to_matrix() * (2 * dt))).to(device, cdtype)
+    W_host = torch.from_numpy(scipy.linalg.expm(-1j * tfim(g1).to_matrix() * (2 * dt)))
 
     def u2t(p):
         return unitary_to_tensor(ansatze.shallow_full_state(p))
 
-    ps = params0.expand(ps_noise.shape[0], -1).clone()
-    with torch.no_grad():
-        A0 = u2t(params0)
-    les = []
-    for _ in range(n_steps):
+    def levels(ps_noise):
+        """(rates, final parameters) of a block of noise levels, on its device."""
+        dev = ps_noise.device
+        W = W_host.to(dev, cdtype)
+        p0 = params0.to(dev)
+        ps = p0.expand(ps_noise.shape[0], -1).clone()
         with torch.no_grad():
-            As = u2t(ps)
-        ps = _warm_started_minimize(lambda q: noisy_tdvp_objective(As, u2t(q), W, ps_noise).sum(), ps,
-                                    inner_steps, lr)
-        with torch.no_grad():
-            ov, _ = right_fixed_point(u2t(ps), A0.expand_as(As))
-        les.append(ov.abs().square())
+            A0 = u2t(p0)
+        les = []
+        for _ in range(n_steps):
+            with torch.no_grad():
+                As = u2t(ps)
+            ps = _warm_started_minimize(lambda q: noisy_tdvp_objective(As, u2t(q), W, ps_noise).sum(), ps,
+                                        inner_steps, lr)
+            with torch.no_grad():
+                ov, _ = right_fixed_point(u2t(ps), A0.expand_as(As))
+            les.append(ov.abs().square())
+        return -torch.log(torch.stack(les, dim=1)), ps
+
+    rates, ps = shard_over_sweep(levels, mesh)(ps_noise)
     times = torch.arange(1, n_steps + 1, dtype=params0.dtype, device=device) * dt
-    return times, -torch.log(torch.stack(les, dim=1)), ps
+    return times, rates, ps
 
 
 def noisy_loschmidt_echo_run(g0: float, g1: float, t_max: float, n_steps: int, noise_levels,

@@ -33,6 +33,7 @@ from ..mps.imps import iMPS, merge
 from ..mps.transfer import dominant_eigval_dense, transfer_dense
 from ..objectives.overlap import mixed_transfer_with_gate
 from ..optim.minimize import adam_steps
+from ..parallel.mesh import shard_over_sweep
 
 _LR = 2e-2  # the JAX package's quantum ensemble rate
 
@@ -222,19 +223,23 @@ def constant_energy_initial_conditions(generator, n: int, mu: float, target_e: f
     return _project_from_starts(p0s.to(dev, rt), mu, target_e, steps, lr)
 
 
-def quantum_poincare_sweep(y0s, mu: float, dt: float, n_steps: int, inner_steps: int = 120,
+def quantum_poincare_sweep(y0s, mu: float, dt: float, n_steps: int, inner_steps: int = 120, mesh=None,
                            device=None) -> torch.Tensor:
     """Ensemble of quantum TDVP trajectories from (B, 4) starts, the
     reference's joblib sweep as one batched computation: each outer step
     runs one adam over the (B, 4) angles of the whole ensemble, warm
-    started, on the sum of the B costs.  (B, n_steps, 4), wrapped to
+    started, on the sum of the B costs; ``mesh`` (``parallel.mesh``)
+    splits the ensemble over its devices.  (B, n_steps, 4), wrapped to
     [0, 2 pi), starting with y0s."""
     dev = resolve_device(device, y0s)
     _, rt = default_dtypes(dev, like=y0s)
     W = scars_W(mu, 4.0 * dt)
-    ps = torch.as_tensor(y0s).to(dev, rt)
-    traj = [torch.remainder(ps, 2 * math.pi)]
-    for _ in range(n_steps - 1):
-        ps = _tdvp_step(ps, W, inner_steps, _LR)
-        traj.append(torch.remainder(ps, 2 * math.pi))
-    return torch.stack(traj, 1)
+
+    def ensemble(ps):
+        traj = [torch.remainder(ps, 2 * math.pi)]
+        for _ in range(n_steps - 1):
+            ps = _tdvp_step(ps, W, inner_steps, _LR)
+            traj.append(torch.remainder(ps, 2 * math.pi))
+        return torch.stack(traj, 1)
+
+    return shard_over_sweep(ensemble, mesh)(torch.as_tensor(y0s).to(dev, rt))

@@ -81,13 +81,33 @@
 // not pay (4% slower): 128 registers and 72 KB of shared memory give 3
 // blocks, 12 warps, an SM.
 //
-// Above N = 64 (matpow_global_kernel, CUDA cores): one 256-thread block an
-// element, a 16 x 16 grid of threads each owning a 4 x 4 register tile of
-// the product; the power ping-pongs between the output and a workspace of
-// the same shape in device memory (L2-resident at these sizes), each
-// squaring over 64 x 64 output tiles and 16-deep contraction chunks staged
-// in shared memory; one block owns one element, so __syncthreads is the
-// only synchronisation needed.
+// Above N = 64 (D >= 9): the same three products on the tensor cores in
+// 3xTF32, over the whole card at once (matpow_tc_tiles_kernel).  One
+// matrix's power, 2 x 256 KB at N = 256, does not fit in an SM, so it lives
+// in device memory as two float32 planes R and I, zero-padded to NP, a
+// multiple of 64, and each squaring is one launch over a grid of 64 x 64
+// output tiles times the batch (133 x 16 = 2,128 CTAs at N = 256), whatever
+// the batch.  A CTA's four warps each own a 32 x 32 quarter of its tile.
+// Its K-chunks (16 deep) of the A rows and B columns of R and I are staged
+// in shared memory by cp.async, three chunks in flight; S = R + I is summed
+// from the R and I entries a thread has loaded for its fragments, bitwise
+// the plane the previous squaring would have written, so the power moves
+// through device memory and L2 as two planes, not three.  The epilogue is
+// re = RR - II, im = SS - RR - II.  The norm takes no pass of its own: each
+// CTA writes the partial ||.||^2 of its tile, and the next squaring (or
+// the output pass) sums its element's partials in a fixed order and scales
+// its product by their reciprocal, c = 1 / max(n2, 1e-30): with Y the
+// stored product, Y' = c Y Y = M M for the normalised M = Y / ||Y||, whose
+// square has norm <= 1, so nothing overflows.  No atomics: the result is
+// the same bits on every run.  The planes ping-pong between two sets of a
+// workspace the wrapper allocates (kernels/pallas_power.matpow_work_floats),
+// with the partial norms beside them; a first pass splits E into the
+// planes (its partials are ||E||^2, folded into the first squaring) and a
+// last one scales the power and interleaves it into out.  At N = 256 the
+// power and workspace of 133 elements (~136 MB) exceed the card's 50 MB of
+// L2, so every squaring reads its planes back from device memory; the
+// element-major grid keeps the four CTAs that share a row or column panel
+// in flight together, so those panels are read from L2.
 #include <cstdint>
 
 #include "planes.cuh"
@@ -170,13 +190,8 @@ int launch_small(const float2* E, float2* out, int B, int iters, cudaStream_t st
 }
 
 // ---------------------------------------------------------------------------
-// K8: N > 16, one block an element
+// K8: N > 16
 // ---------------------------------------------------------------------------
-
-constexpr int kLargeThreads = 256;  // matpow_global_kernel: a 16 x 16 grid of threads
-constexpr int kGrid = 16;
-constexpr int kOutTile = 64;        // the device-memory path's output tile
-constexpr int kChunk = 16;          // and its contraction chunk
 
 // The sum of x over a block of kWarps warps, on every thread.  Its first
 // barrier also orders every read before it against every write after it.
@@ -371,87 +386,238 @@ int launch_tc(const float2* E, float2* out, int B, int N, int iters, cudaStream_
   return (int)cudaGetLastError();
 }
 
-// N > 64: the power in device memory, ping-ponging between out and work
-__global__ void __launch_bounds__(kLargeThreads)
-    matpow_global_kernel(const float2* __restrict__ E, float2* out, float2* work, int N, int iters) {
-  __shared__ float2 sa[kOutTile * kChunk];  // rows i0.., columns k0..
-  __shared__ float2 sb[kChunk * kOutTile];  // rows k0.., columns j0..
-  __shared__ float red[kLargeThreads / 32];
-  const int tx = threadIdx.x % kGrid, ty = threadIdx.x / kGrid;
-  const int NN = N * N;
-  const size_t off = (size_t)blockIdx.x * NN;
-  const float2* e = E + off;
-  // the power starts in src; after an odd number of squarings it is in the
-  // other buffer, so the start buffer is chosen for the last one to be out
-  float2* src = ((iters & 1) ? work : out) + off;
-  float2* dst = ((iters & 1) ? out : work) + off;
+// ---- N > 64: the squaring over 64 x 64 output tiles, tensor cores in 3xTF32 ----
 
+constexpr int kTile = 64;           // output tile of a CTA, and the unit NP is padded to
+constexpr int kTileK = 16;          // contraction chunk
+constexpr int kTileStages = 3;      // chunks in flight
+constexpr int kTileThreads = 128;   // 2 x 2 warps, 32 x 32 outputs each
+constexpr int kTileMinBlocks = 2;   // CTAs an SM (__launch_bounds__): 213 registers a thread
+constexpr int kPlaneThreads = 256;  // the split and output passes
+// row strides in shared memory, floats: 20 puts the A fragment's rows
+// g < 8 at banks 20 g mod 32 (0, 20, 8, 28, 16, 4, 24, 12) + t, 72 the B
+// fragment's rows t < 4 at 8 t + g: 32 distinct banks a load, and every
+// row start 16-byte aligned for cp.async
+constexpr int kLdA = kTileK + 4;
+constexpr int kLdB = kTile + 8;
+constexpr int kStageA = 2 * kTile * kLdA;   // R and I: the chunk's 64 A rows
+constexpr int kStageB = 2 * kTileK * kLdB;  // R and I: its 16 B rows
+constexpr int kStage = kStageA + kStageB;
+constexpr int kTileSmem = (kTileStages * kStage + kTileThreads / 32) * (int)sizeof(float);  // + the reduction
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The squared norm of element b's stored power: its T2 tiles' partials,
+// summed in tile order (the same bits in every CTA that reads them)
+__device__ __forceinline__ float tiles_norm2(const float* part, long long b, int T2) {
   float n2 = 0.f;
-  for (int k = threadIdx.x; k < NN; k += kLargeThreads) n2 += norm2(ld(e, k));
-  float inv = rsqrtf(fmaxf(block_sum<kLargeThreads / 32>(n2, red), kNormFloor));
-  for (int k = threadIdx.x; k < NN; k += kLargeThreads) st(src, k, inv * ld(e, k));
-  __syncthreads();
+  for (int k = 0; k < T2; ++k) n2 += part[b * T2 + k];
+  return n2;
+}
 
-  for (int it = 0; it < iters; ++it) {
-    n2 = 0.f;
-    for (int i0 = 0; i0 < N; i0 += kOutTile)
-      for (int j0 = 0; j0 < N; j0 += kOutTile) {
-        c32 acc[4][4];
+// E (B, N, N) complex64 -> the R and I planes (B, 2, NP, NP), zero-padded,
+// and each tile's partial ||E||^2.  One CTA a 64 x 64 tile, element-major.
+__global__ void __launch_bounds__(kPlaneThreads)
+    matpow_tiles_split_kernel(const float2* __restrict__ E, float* __restrict__ Y, float* __restrict__ part, int N,
+                              int NP) {
+  __shared__ float red[kPlaneThreads / 32];
+  const int T = NP / kTile, T2 = T * T, tile = blockIdx.x % T2;
+  const long long b = blockIdx.x / T2;
+  const int i0 = (tile / T) * kTile, j0 = (tile % T) * kTile;
+  const size_t NN = (size_t)NP * NP;
+  float* R = Y + b * 2 * NN;
+  float* I = R + NN;
+  const float2* e = E + b * N * N;
+  float n2 = 0.f;
+  for (int k = threadIdx.x; k < kTile * kTile; k += kPlaneThreads) {
+    const int i = i0 + k / kTile, j = j0 + k % kTile;
+    const float2 x = (i < N && j < N) ? e[(size_t)i * N + j] : make_float2(0.f, 0.f);
+    R[(size_t)i * NP + j] = x.x;
+    I[(size_t)i * NP + j] = x.y;
+    n2 += x.x * x.x + x.y * x.y;
+  }
+  n2 = block_sum<kPlaneThreads / 32>(n2, red);
+  if (threadIdx.x == 0) part[b * T2 + tile] = n2;
+}
+
+// One squaring: dst = c src src, c = 1 / max(||src||^2, 1e-30) from
+// part_in, and dst's partial norms into part_out.  src, dst (B, 2, NP, NP).
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
+    matpow_tc_tiles_kernel(const float* __restrict__ src, float* __restrict__ dst, const float* __restrict__ part_in,
+                           float* __restrict__ part_out, int NP) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = NP / kTile, T2 = T * T, KT = NP / kTileK, tile = blockIdx.x % T2;
+  const long long b = blockIdx.x / T2;
+  const int i0 = (tile / T) * kTile, j0 = (tile % T) * kTile;
+  const size_t NN = (size_t)NP * NP;
+  const float* const R = src + b * 2 * NN;
+  const float* const I = R + NN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp >> 1, wn = warp & 1;
+
+  // chunk kc into stage st: 2 planes x 64 A rows x kTileK / 4 pieces of 16
+  // bytes, and 2 planes x kTileK B rows x 16 pieces
+  auto load = [&](int st, int kc) {
+    constexpr int PA = kTileK / 4, PB = kTile / 4;  // pieces a row
+    float* const a = sm + st * kStage;
+    float* const bs = a + kStageA;
+    const int k0 = kc * kTileK;
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
+    for (int l = tid; l < 2 * kTile * PA; l += kTileThreads) {
+      const int p = l / (kTile * PA), r = l / PA % kTile, c = l % PA * 4;
+      cp_async16(a + p * kTile * kLdA + r * kLdA + c, (p ? I : R) + (size_t)(i0 + r) * NP + k0 + c);
+    }
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[p][q] = mk(0.f, 0.f);
-        for (int k0 = 0; k0 < N; k0 += kChunk) {
-          for (int l = threadIdx.x; l < kOutTile * kChunk; l += kLargeThreads) {
-            const int r = l / kChunk, c = l % kChunk;
-            sa[l] = (i0 + r < N && k0 + c < N) ? src[(i0 + r) * N + k0 + c] : make_float2(0.f, 0.f);
-          }
-          for (int l = threadIdx.x; l < kChunk * kOutTile; l += kLargeThreads) {
-            const int r = l / kOutTile, c = l % kOutTile;
-            sb[l] = (k0 + r < N && j0 + c < N) ? src[(k0 + r) * N + j0 + c] : make_float2(0.f, 0.f);
-          }
-          __syncthreads();
+    for (int l = tid; l < 2 * kTileK * PB; l += kTileThreads) {
+      const int p = l / (kTileK * PB), r = l / PB % kTileK, c = l % PB * 4;
+      cp_async16(bs + p * kTileK * kLdB + r * kLdB + c, (p ? I : R) + (size_t)(k0 + r) * NP + j0 + c);
+    }
+  };
+
+  float acc[3][2][4][4];  // RR, II, SS; m-tile, n-tile, fragment entry
 #pragma unroll
-          for (int kk = 0; kk < kChunk; ++kk) {
-            c32 a[4], c[4];
+  for (int q = 0; q < 3; ++q)
 #pragma unroll
-            for (int p = 0; p < 4; ++p) a[p] = ld(sa, (ty + kGrid * p) * kChunk + kk);
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) c[q] = ld(sb, kk * kOutTile + tx + kGrid * q);
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-            for (int p = 0; p < 4; ++p)
+        for (int e = 0; e < 4; ++e) acc[q][mt][nt][e] = 0.f;
+
 #pragma unroll
-              for (int q = 0; q < 4; ++q) cfma(acc[p][q], a[p], c[q]);
-          }
-          __syncthreads();  // the chunk is consumed before the next one loads
+  for (int st = 0; st < kTileStages - 1; ++st) {
+    if (st < KT) load(st, st);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < KT; ++kc) {
+    cp_async_wait<kTileStages - 2>();  // chunk kc has landed (this thread's pieces)
+    __syncthreads();                   // everyone's pieces; and chunk kc - 1 is consumed
+    if (kc + kTileStages - 1 < KT) load((kc + kTileStages - 1) % kTileStages, kc + kTileStages - 1);
+    cp_async_commit();  // an empty group at the tail keeps the count
+    const float* const a = sm + (kc % kTileStages) * kStage;
+    const float* const bs = a + kStageA;
+#pragma unroll
+    for (int ks = 0; ks < kTileK / 8; ++ks) {
+      float ar[2][2][4], br[2][4][2];  // plane R, I; m-tile or n-tile; fragment entry
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* x = a + p * kTile * kLdA + (wm * 32 + mt * 16 + g) * kLdA + ks * 8 + t;
+          ar[p][mt][0] = x[0];
+          ar[p][mt][1] = x[8 * kLdA];
+          ar[p][mt][2] = x[4];
+          ar[p][mt][3] = x[8 * kLdA + 4];
         }
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int i = i0 + ty + kGrid * p, j = j0 + tx + kGrid * q;
-            if (i < N && j < N) {
-              st(dst, i * N + j, acc[p][q]);
-              n2 += norm2(acc[p][q]);
-            }
-          }
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* x = bs + p * kTileK * kLdB + (ks * 8 + t) * kLdB + wn * 32 + nt * 8 + g;
+          br[p][nt][0] = x[0];
+          br[p][nt][1] = x[4 * kLdB];
+        }
       }
-    inv = rsqrtf(fmaxf(block_sum<kLargeThreads / 32>(n2, red), kNormFloor));
-    // each thread rescales the entries it wrote itself
-    for (int i0 = 0; i0 < N; i0 += kOutTile)
-      for (int j0 = 0; j0 < N; j0 += kOutTile)
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
+      for (int q = 0; q < 3; ++q) {  // R R, I I, S S with S = R + I
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int i = i0 + ty + kGrid * p, j = j0 + tx + kGrid * q;
-            if (i < N && j < N) st(dst, i * N + j, inv * ld(dst, i * N + j));
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(q < 2 ? ar[q][mt][e] : ar[0][mt][e] + ar[1][mt][e], ah[mt][e], al[mt][e]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t bh[2], bl[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) split_tf32(q < 2 ? br[q][nt][e] : br[0][nt][e] + br[1][nt][e], bh[e], bl[e]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(acc[q][mt][nt], al[mt], bh);  // the small terms first
+            mma_tf32(acc[q][mt][nt], ah[mt], bl);
+            mma_tf32(acc[q][mt][nt], ah[mt], bh);
           }
-    __syncthreads();  // dst is complete before it is read as src
-    float2* t = src;
-    src = dst;
-    dst = t;
+        }
+      }
+    }
   }
+  cp_async_wait<0>();
+
+  // re = RR - II, im = SS - RR - II, times c; entries (r, 2t) and (r, 2t + 1)
+  // of each n-tile, r = g (e = 0, 1) and g + 8 (e = 2, 3) of the m-tile
+  const float s = rsqrtf(fmaxf(tiles_norm2(part_in, b, T2), kNormFloor)), c = s * s;
+  float* const Ro = dst + b * 2 * NN;
+  float* const Io = Ro + NN;
+  float n2 = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* rr = acc[0][mt][nt] + 2 * h;
+        const float* ii = acc[1][mt][nt] + 2 * h;
+        const float* ss = acc[2][mt][nt] + 2 * h;
+        const float re0 = c * (rr[0] - ii[0]), re1 = c * (rr[1] - ii[1]);
+        const float im0 = c * (ss[0] - rr[0] - ii[0]), im1 = c * (ss[1] - rr[1] - ii[1]);
+        const size_t at = (size_t)(i0 + wm * 32 + mt * 16 + g + 8 * h) * NP + j0 + wn * 32 + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(Ro + at) = make_float2(re0, re1);
+        *reinterpret_cast<float2*>(Io + at) = make_float2(im0, im1);
+        n2 += re0 * re0 + re1 * re1 + im0 * im0 + im1 * im1;  // zero in the padding
+      }
+  n2 = block_sum<kTileThreads / 32>(n2, sm + kTileStages * kStage);
+  if (tid == 0) part_out[b * T2 + tile] = n2;
+}
+
+// out (B, N, N) complex64 = the stored power Y over its norm
+__global__ void __launch_bounds__(kPlaneThreads)
+    matpow_tiles_out_kernel(const float* __restrict__ Y, const float* __restrict__ part, float2* __restrict__ out,
+                            int N, int NP) {
+  const int T = NP / kTile, T2 = T * T, tile = blockIdx.x % T2;
+  const long long b = blockIdx.x / T2;
+  const int i0 = (tile / T) * kTile, j0 = (tile % T) * kTile;
+  const size_t NN = (size_t)NP * NP;
+  const float* R = Y + b * 2 * NN;
+  const float* I = R + NN;
+  const float s = rsqrtf(fmaxf(tiles_norm2(part, b, T2), kNormFloor));
+  for (int k = threadIdx.x; k < kTile * kTile; k += kPlaneThreads) {
+    const int i = i0 + k / kTile, j = j0 + k % kTile;
+    if (i < N && j < N)
+      out[(size_t)b * N * N + (size_t)i * N + j] = make_float2(s * R[(size_t)i * NP + j], s * I[(size_t)i * NP + j]);
+  }
+}
+
+// K8 above N = 64: the split pass, iters squarings and the output pass on
+// a workspace of two sets of planes (B, 2, NP, NP) and two of partial norms
+// (B, T2), NP = N rounded up to 64 and T2 = (NP / 64)^2
+// (kernels/pallas_power.py::matpow_work_floats computes its size)
+int launch_tiles(const float2* E, float2* out, float* work, int B, int N, int iters, cudaStream_t stream) {
+  const int NP = (N + kTile - 1) / kTile * kTile, T2 = (NP / kTile) * (NP / kTile);
+  if ((long long)B * T2 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t planes = (size_t)B * 2 * NP * NP;
+  float* const Y[2] = {work, work + planes};
+  float* const part[2] = {work + 2 * planes, work + 2 * planes + (size_t)B * T2};
+  const cudaError_t err =
+      cudaFuncSetAttribute(matpow_tc_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)(B * T2);
+  matpow_tiles_split_kernel<<<grid, kPlaneThreads, 0, stream>>>(E, Y[0], part[0], N, NP);
+  for (int it = 1; it <= iters; ++it) {
+    matpow_tc_tiles_kernel<<<grid, kTileThreads, kTileSmem, stream>>>(Y[(it - 1) & 1], Y[it & 1],
+                                                                      part[(it - 1) & 1], part[it & 1], NP);
+    if (it == 1) {  // a launch refused once is refused every time: stop at the first
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  matpow_tiles_out_kernel<<<grid, kPlaneThreads, 0, stream>>>(Y[iters & 1], part[iters & 1], out, N, NP);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace qmps
@@ -485,9 +651,10 @@ extern "C" int qmps_matpow_small(const void* E, void* out, int B, int N, int ite
   }
 }
 
-// K8.  E, out (B, N, N) complex64, contiguous on the device, N > 16; work a
-// (B, N, N) complex64 workspace for N > 64 (unused, may be null, below).
-// Returns cudaGetLastError() after the launch.
+// K8.  E, out (B, N, N) complex64, contiguous on the device, N > 16; work
+// for N > 64 a float32 workspace of matpow_work_floats(B, N) floats
+// (kernels/pallas_power.py; unused, may be null, below).  Returns
+// cudaGetLastError() after the launches.
 extern "C" int qmps_matpow_large(const void* E, void* out, void* work, int B, int N, int iters,
                                  void* stream) {
   const float2* e = (const float2*)E;
@@ -497,6 +664,5 @@ extern "C" int qmps_matpow_large(const void* E, void* out, void* work, int B, in
   if (N <= 32) return qmps::launch_tc<2>(e, o, B, N, iters, s);
   if (N <= 48) return qmps::launch_tc<3>(e, o, B, N, iters, s);
   if (N <= 64) return qmps::launch_tc<4>(e, o, B, N, iters, s);
-  qmps::matpow_global_kernel<<<B, qmps::kLargeThreads, 0, s>>>(e, o, (float2*)work, N, iters);
-  return (int)cudaGetLastError();
+  return qmps::launch_tiles(e, o, (float*)work, B, N, iters, s);
 }

@@ -33,7 +33,8 @@ warm-up, on:
 - K7: random complex normal matrices scaled by 1/sqrt(N), 4,096 at each of
   N = 9, 12, 13, 16, and K7 and K8 on the D = 4 and D = 8 TDVP transfer
   matrices of 4,096 such pairs (the objective's batch), E alone (4,096,
-  this tree's path) and [E, E^dag] (8,192, the earlier path);
+  this tree's path) and [E, E^dag] (8,192, the earlier path); K8 above
+  N = 64 on 133 random 256 x 256 matrices;
 - an empty kernel on K5's grid at 64 elements, queued and not: the floor
   of the card's and of the host's launch rate.
 Each tree is called through its own interface (``_interface``): an earlier
@@ -134,6 +135,16 @@ def _in_turns(fns, reps):
     for n in names + names[::-1]:
         out[n].append(_ms(fns[n], reps))
     return out
+
+
+def matpow_large_launcher(lib, X, out, work, iters, stream):
+    """One raw launch of ``lib``'s K8 (``qmps_matpow_large``) on X (B, N, N)
+    into out; ``work`` a workspace of ``pallas_power.matpow_work_floats(B,
+    N)`` floats above N = 64 (an earlier tree may use fewer of them), None
+    below."""
+    n, N = X.shape[0], X.shape[-1]
+    w = None if work is None else work.data_ptr()
+    return lambda: lib.qmps_matpow_large(X.data_ptr(), out.data_ptr(), w, n, N, iters, stream)
 
 
 def _phase_err(v, ref):
@@ -353,20 +364,25 @@ def _run(args, dev, card, tmp: Path) -> int:
     sets += [("K7", f"random N = {N}", torch.from_numpy(
         (rng.standard_normal((BIG, N, N)) + 1j * rng.standard_normal((BIG, N, N))) / np.sqrt(N)).to(dev, torch.complex64))
         for N in K7_NS]
+    sets.append(("K8", "random N = 256", torch.from_numpy(
+        (rng.standard_normal((133, 256, 256)) + 1j * rng.standard_normal((133, 256, 256))) / 16).to(dev, torch.complex64)))
     for name, tag, X in sets:
         n, N = X.shape[0], X.shape[-1]
         X64 = X.to(torch.complex128)
         lam_p, v_p = tpp._extract_eigpair(X64, tpp._matrix_power_plain(X64, ITERS))
-        # K7's "quad" tree squares on the tensor cores at every N, its "thread" tree on the CUDA cores
+        # K7's "quad" tree squares on the tensor cores at every N, its "thread"
+        # tree on the CUDA cores
         trees = ("old", "new", "thread", "quad") if name == "K7" and "dag" not in tag else ("old", "new")
         outs = {k: torch.empty_like(X) for k in trees}
+        work = (torch.empty(tpp.matpow_work_floats(n, N), dtype=torch.float32, device=dev)
+                if N > tpp.MAX_SHARED_N else None)
 
         def launch(k):
             if name == "K7":
                 return lambda: libs[k].qmps_matpow_small(X.data_ptr(), outs[k].data_ptr(), n, N, ITERS, stream)
-            return lambda: libs[k].qmps_matpow_large(X.data_ptr(), outs[k].data_ptr(), None, n, N, ITERS, stream)
+            return matpow_large_launcher(libs[k], X, outs[k], work, ITERS, stream)
 
-        reps = 20 if name == "K7" else 5
+        reps = 20 if name == "K7" else 5 if N <= 64 else 2
         times = _in_turns({k: launch(k) for k in trees[:2]}, reps)
         if len(trees) > 2:
             times.update(_in_turns({k: launch(k) for k in trees[2:]}, reps))

@@ -10,7 +10,7 @@ Each C entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises on a non-zero code.
 
 ``launches`` holds one plain-integer launch counter per kernel; a wrapper
-adds one where it launches its kernel and nowhere else.
+adds one (:func:`count`) where it launches its kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -51,11 +52,18 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_count_lock = threading.Lock()  # the shards of a sharded sweep launch from threads of their own
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def _sources(src_dir: Path = SRC_DIR) -> list[Path]:

@@ -56,7 +56,7 @@ def _overlap_cuda(U1, U2, U1p, U2p, Mr, Ml, W) -> torch.Tensor:
             with torch.cuda.device(dev):
                 rc = _launch(ops, out, B, dev)
         _lib.check(rc, "brickwork_overlap")
-        _lib.launches["brickwork_overlap"] += 1
+        _lib.count("brickwork_overlap")
     return out
 
 

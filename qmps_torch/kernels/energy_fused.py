@@ -165,7 +165,7 @@ def _fwd_cuda(As, hs, iters):
                 B, iters, torch.cuda.current_stream().cuda_stream,
             )
         _lib.check(rc, "energy_fwd")
-        _lib.launches["energy_fwd"] += 1
+        _lib.count("energy_fwd")
     return e, lam, v
 
 
@@ -189,7 +189,7 @@ def _bwd_cuda(As, hs, lam, v, ct):
                 torch.cuda.current_stream().cuda_stream,
             )
         _lib.check(rc, "energy_bwd")
-        _lib.launches["energy_bwd"] += 1
+        _lib.count("energy_bwd")
     return Abar, hbar
 
 

@@ -14,8 +14,10 @@ For a CUDA tensor (complex64) it launches hand-written kernels:
   ``::_power_kernel``;
 - 4 < N <= 16 (D = 3, 4) and N > 16 (D >= 5): ``csrc/matpow.cu`` (K7, one
   warp a matrix, from N = 13 on the tensor cores in 3xTF32, below on the
-  CUDA cores; K8, one block a matrix, up to N = 64 on the tensor cores),
-  which replace ``::_matpow_kernel_looped``
+  CUDA cores; K8 on the tensor cores in 3xTF32, one block a matrix up to
+  N = 64, above it a grid of 64 x 64 output tiles over the whole batch, one
+  launch a squaring, the power in a workspace), which replace
+  ``::_matpow_kernel_looped``
   and ``::_squaring_kernel_mxu``.  They return the normalised power
   E^(2^iters); ``_extract_eigpair`` reads (lam, v) off it in plain PyTorch,
   as the JAX package does in XLA, and ``_left_vector`` reads the left
@@ -39,6 +41,16 @@ _METHODS = {"squaring": 0, "power": 1}
 MAX_SMALL_N = 16
 #: largest N whose power K8 keeps in shared memory; above it, in a workspace
 MAX_SHARED_N = 64
+#: K8's output tile above MAX_SHARED_N, and the unit its planes are padded to
+TILE = 64
+
+
+def matpow_work_floats(B: int, N: int) -> int:
+    """Floats of K8's workspace above N = 64 (csrc/matpow.cu::launch_tiles):
+    two sets of float32 planes R, I (B, 2, NP, NP), NP = N rounded up to 64,
+    and two sets of the tiles' partial norms (B, (NP / 64)^2)."""
+    NP = -(-N // TILE) * TILE
+    return 2 * (B * 2 * NP * NP + B * (NP // TILE) ** 2)
 
 
 def _chirps(N: int):
@@ -150,7 +162,7 @@ def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str, left: bool = Fa
                 _METHODS[method], torch.cuda.current_stream().cuda_stream,
             )
         _lib.check(rc, "dominant_eig")
-        _lib.launches["dominant_eig"] += 1
+        _lib.count("dominant_eig")
     return (lam, v, w) if left else (lam, v)
 
 
@@ -169,13 +181,14 @@ def _matrix_power_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
                 rc = _lib.lib().qmps_matpow_small(E.data_ptr(), M.data_ptr(), B, N, iters, stream)
             else:
                 name = "matpow_large"
-                work = torch.empty_like(E) if N > MAX_SHARED_N else None
+                work = (torch.empty(matpow_work_floats(B, N), dtype=torch.float32, device=E.device)
+                        if N > MAX_SHARED_N else None)
                 rc = _lib.lib().qmps_matpow_large(
                     E.data_ptr(), M.data_ptr(), None if work is None else work.data_ptr(),
                     B, N, iters, stream,
                 )
         _lib.check(rc, name)
-        _lib.launches[name] += 1
+        _lib.count(name)
     return M
 
 

@@ -113,7 +113,7 @@ def _fwd_cuda(As, Bs, W, iters, with_left):
                 B, iters, int(with_left), torch.cuda.current_stream().cuda_stream,
             )
         _lib.check(rc, "tdvp_fwd")
-        _lib.launches["tdvp_fwd"] += 1
+        _lib.count("tdvp_fwd")
     return lam, v, w
 
 
@@ -142,7 +142,7 @@ def _bwd_cuda(As, Bs, W, lam, v, u, ct):
                 B, torch.cuda.current_stream().cuda_stream,
             )
         _lib.check(rc, "tdvp_bwd")
-        _lib.launches["tdvp_bwd"] += 1
+        _lib.count("tdvp_bwd")
     return Abar, Bbar, Wbar
 
 

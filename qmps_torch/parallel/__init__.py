@@ -1,3 +1,4 @@
+from .mesh import make_mesh  # noqa: F401
 from .sweep import (  # noqa: F401
     multi_start_ground_state,
     phase_diagram_sweep,

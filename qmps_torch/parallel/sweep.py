@@ -20,8 +20,10 @@ batch, optimized together.
   all batched PyTorch products, as the JAX package runs it with XLA and
   no Pallas kernel; ``sweep_variance_certificates`` reads each returned
   state's energy variance, and ``grow_isometry`` embeds a D state into 2D.
-The JAX package's ``mesh`` (one card here), its program caches and
-scan-length ``chunk`` (TPU compile workarounds) have no counterpart.
+Every sweep takes the JAX package's ``mesh`` (``parallel/mesh.py``): its
+points are split over the mesh's devices, each shard's rows the same pure
+function of its starts as without one.  The JAX package's program caches
+and scan-length ``chunk`` (TPU compile workarounds) have no counterpart.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from ..core.gates import complex_type
 from ..core.linalg import _trace
 from ..core.paulis import I2, X, Z
 from ..kernels.energy_fused import energy_objective_fused
+from .mesh import shard_over_sweep, shards_on_device
 
 
 def tfim_matrix(g: torch.Tensor) -> torch.Tensor:
@@ -144,35 +147,43 @@ def _saved_bytes(loss, p: torch.Tensor) -> int:
 def chart_point_chunk(n: int, restarts: int, row_bytes: int, device) -> int:
     """Points a chart-sweep program takes at once: all n on the CPU; on
     CUDA as many as half the card's free memory holds of ``row_bytes``
-    (the saved tensors of one row's step) per restart slot."""
+    (the saved tensors of one row's step) per restart slot, that half
+    shared by the shards of a sharded sweep on the card."""
     device = torch.device(device)
     if device.type != "cuda":
         return n
     free, _ = torch.cuda.mem_get_info(device)
-    return max(1, min(n, int(free // 2 // max(1, restarts * row_bytes))))
+    return max(1, min(n, int(free // 2 // shards_on_device() // max(1, restarts * row_bytes))))
 
 
 def _sweep_from_starts(gs: torch.Tensor, p0s: torch.Tensor, D: int, ansatz: str, steps: int, lr: float,
-                       refine_passes: int, recycle: bool, point_chunk: int | None, jitter):
+                       refine_passes: int, recycle: bool, point_chunk: int | None, jitter, mesh=None):
     """The body of ``sweep_ground_states`` from given starts p0s (n,
     restarts, n_params), on gs's device and in its type; ``jitter(k,
     shift, shape)`` gives refine pass k's noise for the slots past 0 (the
-    JAX package folds 1000 + 2k + (shift > 0) into its key).  Returns
-    (energies (n,), params (n, n_params))."""
+    JAX package folds 1000 + 2k + (shift > 0) into its key).  With a
+    ``mesh`` the optimizations and evaluations run sharded over its
+    devices, each shard in point chunks of its own; the refine passes'
+    neighbours and jitter are taken on the whole batch.  Returns (energies
+    (n,), params (n, n_params))."""
     build, _ = _sweep_ansatz(ansatz, D)
     optimize, evaluate, step_loss = _chart_programs(build, D, steps, lr, recycle)
     n, restarts, k = p0s.shape
     hs_all = tfim_matrix(gs)
     if point_chunk is None:
         row_bytes = _saved_bytes(lambda p: step_loss(hs_all[:1], p), p0s[:1, 0])
-        point_chunk = chart_point_chunk(n, restarts, row_bytes, gs.device)
 
-    def run(p0):
+    def chunk_of(hs):
+        """The point chunk of a block of points on hs's device."""
+        return point_chunk or chart_point_chunk(hs.shape[0], restarts, row_bytes, hs.device)
+
+    def optimize_block(hs_b, p0):
         """Every chunk's restarts optimized, the best kept per point."""
+        m_all, c = hs_b.shape[0], chunk_of(hs_b)
         es, ps = [], []
-        for i in range(0, n, point_chunk):
-            m = min(point_chunk, n - i)
-            hs = hs_all[i:i + m, None].expand(m, restarts, 4, 4).reshape(-1, 4, 4)
+        for i in range(0, m_all, c):
+            m = min(c, m_all - i)
+            hs = hs_b[i:i + m, None].expand(m, restarts, 4, 4).reshape(-1, 4, 4)
             e, p = optimize(hs, p0[i:i + m].reshape(-1, k))
             e = e.reshape(m, restarts)
             j = torch.argmin(e, dim=1)
@@ -181,18 +192,20 @@ def _sweep_from_starts(gs: torch.Tensor, p0s: torch.Tensor, D: int, ansatz: str,
             ps.append(p.reshape(m, restarts, k)[rows, j])
         return torch.cat(es), torch.cat(ps)
 
-    def run_eval(p):
-        return torch.cat([evaluate(hs_all[i:i + point_chunk], p[i:i + point_chunk])
-                          for i in range(0, n, point_chunk)])
+    def evaluate_block(hs_b, p):
+        c = chunk_of(hs_b)
+        return torch.cat([evaluate(hs_b[i:i + c], p[i:i + c]) for i in range(0, hs_b.shape[0], c)])
 
-    es, ps = run(p0s)
+    run = shard_over_sweep(optimize_block, mesh)
+    run_eval = shard_over_sweep(evaluate_block, mesh)
+    es, ps = run(hs_all, p0s)
     for kp in range(refine_passes):
         for shift in (1, -1):
             p_nb = torch.roll(ps, shift, 0)
             # (a) the verbatim neighbour: the ground state is continuous in
             # g, so a good neighbour's parameters cost O(dg^2) here; this
             # hop heals an attractive bad basin that (b) can fall back into
-            e_nb = run_eval(p_nb)
+            e_nb = run_eval(hs_all, p_nb)
             better = e_nb < es
             es = torch.where(better, e_nb, es)
             ps = torch.where(better[:, None], p_nb, ps)
@@ -203,7 +216,7 @@ def _sweep_from_starts(gs: torch.Tensor, p0s: torch.Tensor, D: int, ansatz: str,
                 noise = jitter(kp, shift, p0n.shape).to(p0n)
                 noise[:, 0] = 0.0
                 p0n = p0n + noise
-            e2, p2 = run(p0n)
+            e2, p2 = run(hs_all, p0n)
             better = e2 < es
             es = torch.where(better, e2, es)
             ps = torch.where(better[:, None], p2, ps)
@@ -211,9 +224,9 @@ def _sweep_from_starts(gs: torch.Tensor, p0s: torch.Tensor, D: int, ansatz: str,
 
 
 def sweep_ground_states(gs, D: int = 2, ansatz: str = "suN", steps: int = 300, lr: float = 0.05,
-                        generator: torch.Generator | None = None, restarts: int = 1, refine_passes: int = 0,
-                        recycle: bool | None = None, point_chunk: int | None = None, warm_params=None,
-                        device=None):
+                        generator: torch.Generator | None = None, mesh=None, restarts: int = 1,
+                        refine_passes: int = 0, recycle: bool | None = None, point_chunk: int | None = None,
+                        warm_params=None, device=None):
     """Ground-state energies of the TFIM for a batch of couplings g: adam
     over the parameters of ``ansatz`` ("suN" (2D)^2 - 1, "deep_bw" the
     depth-(n+1) brick wall, "full15" 15, a shallow circuit of
@@ -238,7 +251,10 @@ def sweep_ground_states(gs, D: int = 2, ansatz: str = "suN", steps: int = 300, l
     ``point_chunk`` bounds the points one program takes, for memory: None
     is ``chart_point_chunk`` (all points on the CPU; on CUDA half the free
     memory over one row's saved tensors); the chunks do not change the
-    result.  ``device`` defaults to gs's for a tensor, else to the card;
+    result.  ``mesh`` (``parallel.mesh``) shards the points over its
+    devices, the chunks applying per shard; the starts and jitter are
+    drawn on the whole batch first, so the shards do not change the
+    result either.  ``device`` defaults to gs's for a tensor, else to the card;
     the precision follows a tensor gs (float32 -> complex64), else the
     device (``config.default_dtypes``).
 
@@ -262,12 +278,12 @@ def sweep_ground_states(gs, D: int = 2, ansatz: str = "suN", steps: int = 300, l
         return 0.05 * torch.randn(shape, generator=generator, dtype=torch.float64)
 
     return _sweep_from_starts(gs, p0s.to(device, rdtype), D, ansatz, steps, lr, refine_passes,
-                              D >= 4 if recycle is None else recycle, point_chunk, jitter)
+                              D >= 4 if recycle is None else recycle, point_chunk, jitter, mesh)
 
 
 def _grown_from_starts(gs: torch.Tensor, D: int, steps: int, lr: float, restarts: int, refine_passes: int,
                        D_start: int, stage_steps: int | None, eps: float, point_chunk: int | None,
-                       return_stages: bool, starts, jitter):
+                       return_stages: bool, starts, jitter, mesh=None):
     """The body of ``sweep_ground_states_grown``: ``starts(i, shape)`` gives
     rung i's random starts (before slot 0 takes the warm start) and
     ``jitter(i)`` rung i's refine-pass noise function."""
@@ -289,7 +305,7 @@ def _grown_from_starts(gs: torch.Tensor, D: int, steps: int, lr: float, restarts
         if warm is not None:
             p0s[:, 0] = warm
         es, ps = _sweep_from_starts(gs, p0s, d, "suN", steps if final or stage_steps is None else stage_steps,
-                                    lr, refine_passes if final else 0, d >= 4, point_chunk, jitter(i))
+                                    lr, refine_passes if final else 0, d >= 4, point_chunk, jitter(i), mesh)
         if return_stages:
             stages[d] = (es, ps)
         if not final:
@@ -299,7 +315,8 @@ def _grown_from_starts(gs: torch.Tensor, D: int, steps: int, lr: float, restarts
 
 
 def sweep_ground_states_grown(gs, D: int, steps: int = 300, lr: float = 0.05,
-                              generator: torch.Generator | None = None, restarts: int = 1, refine_passes: int = 0,
+                              generator: torch.Generator | None = None, mesh=None, restarts: int = 1,
+                              refine_passes: int = 0,
                               D_start: int = 2, stage_steps: int | None = None, eps: float = 4e-2,
                               point_chunk: int | None = None, return_stages: bool = False, device=None):
     """Bond-growth continuation sweep ("suN" only): optimize the whole
@@ -312,7 +329,8 @@ def sweep_ground_states_grown(gs, D: int, steps: int = 300, lr: float = 0.05,
     ``stage_steps`` (None: ``steps``) bounds the intermediate rungs;
     refine passes run at the final D only.  Each rung draws its starts
     from a generator of its own, seeded from ``generator`` (a CPU
-    generator, seed 0 if None).  ``point_chunk`` applies to every rung;
+    generator, seed 0 if None).  ``point_chunk`` and ``mesh`` apply to
+    every rung;
     ``device`` and precision as ``sweep_ground_states``.  Returns
     (energies, params) at D; with ``return_stages``, also {D': (energies,
     params)} of every rung.
@@ -335,7 +353,7 @@ def sweep_ground_states_grown(gs, D: int, steps: int = 300, lr: float = 0.05,
         return lambda k, shift, shape: 0.05 * torch.randn(shape, generator=rung(i), dtype=torch.float64)
 
     return _grown_from_starts(gs, D, steps, lr, restarts, refine_passes, D_start, stage_steps, eps, point_chunk,
-                              return_stages, starts, jitter)
+                              return_stages, starts, jitter, mesh)
 
 
 def multi_start_ground_state(g: float, D: int = 2, ansatz: str = "suN", n_starts: int = 64, steps: int = 300,
@@ -354,16 +372,18 @@ def multi_start_ground_state(g: float, D: int = 2, ansatz: str = "suN", n_starts
 
 
 def phase_diagram_sweep(gs, Ds=(2,), ansatz: str = "suN", steps: int = 300,
-                        generator: torch.Generator | None = None, device=None) -> torch.Tensor:
+                        generator: torch.Generator | None = None, mesh=None, device=None) -> torch.Tensor:
     """(len(Ds), len(gs)) energy table: ``sweep_ground_states`` at each D
-    (ragged shapes, one batch each), each D's starts from a generator of
-    its own seeded from ``generator`` (a CPU generator, seed 0 if None)."""
+    (ragged shapes, one batch each, sharded over ``mesh``), each D's starts
+    from a generator of its own seeded from ``generator`` (a CPU generator,
+    seed 0 if None)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     seed = int(torch.randint(0, 2**62, (1,), generator=generator))
     return torch.stack([
         sweep_ground_states(gs, D=D, ansatz=ansatz, steps=steps,
-                            generator=torch.Generator().manual_seed(_slot_seed(seed, 3, i)), device=device)[0]
+                            generator=torch.Generator().manual_seed(_slot_seed(seed, 3, i)), mesh=mesh,
+                            device=device)[0]
         for i, D in enumerate(Ds)
     ])
 
@@ -376,6 +396,7 @@ def sweep_ground_states_fused(
     restarts: int = 1,
     generator: torch.Generator | None = None,
     iters: int = 48,
+    mesh=None,
     device=None,
 ):
     """The D = 2 phase-diagram sweep with the fused energy objective:
@@ -385,10 +406,11 @@ def sweep_ground_states_fused(
     per point.
 
     ``gs`` (n,) couplings; ``generator`` draws the starting isometries (a
-    CPU ``torch.Generator``, seed 0 if None); ``device`` defaults to gs's
-    for a tensor, else to the card (``config.resolve_device``).  On the
-    CPU the sweep runs in complex128 with the plain objective, on CUDA in
-    complex64 with the kernels.
+    CPU ``torch.Generator``, seed 0 if None, on the whole batch); ``mesh``
+    shards the steps and the final pick over its devices (n must divide);
+    ``device`` defaults to gs's for a tensor, else to the card
+    (``config.resolve_device``).  On the CPU the sweep runs in complex128
+    with the plain objective, on CUDA in complex64 with the kernels.
 
     Returns (energies (n,), As (n, 2, 2, 2) left-canonical tensors).
     """
@@ -402,10 +424,17 @@ def sweep_ground_states_fused(
     xim = torch.randn((Bt, 4, 2), generator=generator, dtype=torch.float64)
     xre, xim = xre.to(device, rdtype), xim.to(device, rdtype)
 
+    return _fused_sweep_from(gs, xre, xim, steps, lr, momentum, restarts, iters, mesh)
+
+
+def _fused_sweep_from(gs, xre, xim, steps, lr, momentum, restarts, iters, mesh=None):
+    """sweep_ground_states_fused's body from given starts: ``xre``, ``xim``
+    (n * restarts, 4, 2) normals on gs's device in its type.  The steps and
+    the final pick are sharded over ``mesh``."""
     init, advance, finish = _fused_sweep_programs(lr, momentum, restarts, iters)
     hs, V, M = init(gs, xre, xim)
-    V, M = advance(V, M, hs, steps)
-    return finish(V, hs)
+    V, M = shard_over_sweep(advance, mesh)(V, M, hs, steps)
+    return shard_over_sweep(finish, mesh)(V, hs)
 
 
 def _fused_sweep_programs(lr, momentum, restarts, iters):
@@ -491,13 +520,14 @@ def stiefel_point_chunk(n: int, D: int, restarts: int, recycle_iters: int, dtype
     """Points a descent program takes at once: all n on the CPU; on CUDA
     as many as half the card's free memory holds of the unroll stack,
     recycle_iters x SAVED_PER_ITER complex (D, D) tensors per restart
-    slot (a D = 32 point with 96 iterations at complex64: 3.1 MB)."""
+    slot (a D = 32 point with 96 iterations at complex64: 3.1 MB), that
+    half shared by the shards of a sharded sweep on the card."""
     device = torch.device(device)
     if device.type != "cuda":
         return n
     free, _ = torch.cuda.mem_get_info(device)
     per_point = restarts * recycle_iters * SAVED_PER_ITER * D * D * torch.empty(0, dtype=dtype).element_size()
-    return max(1, min(n, int(free // 2 // per_point)))
+    return max(1, min(n, int(free // 2 // shards_on_device() // per_point)))
 
 
 def _polar_ns(W: torch.Tensor, iters: int = 10) -> torch.Tensor:
@@ -623,8 +653,8 @@ def _nested_restart_normals(seed: int, restarts: int, shape):
 def sweep_ground_states_stiefel(gs, D: int, steps: int = 300, lr: float = 0.08, momentum: float = 0.9,
                                 restarts: int = 1, generator: torch.Generator | None = None,
                                 recycle_iters: int | None = None, final_iters: int = 200,
-                                point_chunk: int | None = None, warm_V=None, precision: str | None = None,
-                                polish_steps: int = 0, device=None):
+                                point_chunk: int | None = None, mesh=None, warm_V=None,
+                                precision: str | None = None, polish_steps: int = 0, device=None):
     """BASELINE config 4 at large D: the phase-diagram sweep by direct
     Stiefel descent on the (2D, D) MPS isometry.  A step of the whole
     batch is one backward of the warm-environment energy (batched power
@@ -654,12 +684,14 @@ def sweep_ground_states_stiefel(gs, D: int, steps: int = 300, lr: float = 0.08, 
     for memory: None is ``stiefel_point_chunk`` (all points on the CPU;
     on CUDA half the free memory over the unroll stack's bytes).  Each
     chunk runs the whole descent; the result does not depend on it.
+    ``mesh`` shards the points over its devices, each shard in chunks of
+    its own; the starts are drawn on the whole batch first.
 
     Returns (energies (n,), As (n, 2, D, D) left-canonical, rs (n, D, D)
     the converged environments), the best of ``restarts`` per point.
     """
     device = resolve_device(device, gs)
-    cdtype, rdtype = default_dtypes(device, gs if isinstance(gs, torch.Tensor) else None)
+    _, rdtype = default_dtypes(device, gs if isinstance(gs, torch.Tensor) else None)
     gs = torch.as_tensor(gs).to(device, rdtype)
     n = gs.shape[0]
     if recycle_iters is None:
@@ -668,22 +700,38 @@ def sweep_ground_states_stiefel(gs, D: int, steps: int = 300, lr: float = 0.08, 
         generator = torch.Generator().manual_seed(0)
     seed = int(torch.randint(0, 2**62, (1,), generator=generator))
     xre, xim = _nested_restart_normals(seed, restarts, (n, 2 * D, D))
-    if point_chunk is None:
-        point_chunk = stiefel_point_chunk(n, D, restarts, recycle_iters, cdtype, device)
     polish = min(max(int(polish_steps), 0), steps) if precision else 0
+    warm_V = None if warm_V is None else torch.as_tensor(warm_V)
+    return _stiefel_sweep_from(gs, xre, xim, warm_V, D, steps, lr, momentum, restarts, recycle_iters, final_iters,
+                               point_chunk, mesh, precision, polish)
+
+
+def _stiefel_sweep_from(gs, xre, xim, warm_V, D, steps, lr, momentum, restarts, recycle_iters, final_iters,
+                        point_chunk=None, mesh=None, precision=None, polish=0):
+    """sweep_ground_states_stiefel's body from given starts: ``xre``,
+    ``xim`` (n, restarts, 2D, D) float64 normals on the CPU, ``warm_V``
+    (n, 2D, D) or None.  The points are sharded over ``mesh``, each shard
+    in chunks of its own."""
+    cdtype, rdtype = default_dtypes(gs.device, gs)
     init, advance, finish = _stiefel_sweep_programs(D, lr, momentum, restarts, recycle_iters, final_iters)
 
-    outs = []
-    for i in range(0, n, point_chunk):
-        sl = slice(i, i + point_chunk)
-        m = gs[sl].shape[0]
-        warm = None if warm_V is None else torch.as_tensor(warm_V)[sl].to(device, cdtype)
-        hs, V, M, r = init(gs[sl], *(x[sl].reshape(m * restarts, 2 * D, D).to(device, rdtype)
-                                     for x in (xre, xim)), warm)
-        V, M, r = advance(V, M, r, hs, steps - polish, precision)
-        V, M, r = advance(V, M, r, hs, polish)
-        outs.append(finish(V, r, hs))
-    return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
+    def descend(gs_b, xre_b, xim_b, warm_b):
+        """The descent of a block of points, in chunks, on gs_b's device."""
+        nb, dev = gs_b.shape[0], gs_b.device
+        chunk = point_chunk or stiefel_point_chunk(nb, D, restarts, recycle_iters, cdtype, dev)
+        outs = []
+        for i in range(0, nb, chunk):
+            sl = slice(i, i + chunk)
+            m = gs_b[sl].shape[0]
+            warm = None if warm_b is None else warm_b[sl].to(dev, cdtype)
+            hs, V, M, r = init(gs_b[sl], *(x[sl].reshape(m * restarts, 2 * D, D).to(dev, rdtype)
+                                           for x in (xre_b, xim_b)), warm)
+            V, M, r = advance(V, M, r, hs, steps - polish, precision)
+            V, M, r = advance(V, M, r, hs, polish)
+            outs.append(finish(V, r, hs))
+        return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
+
+    return shard_over_sweep(descend, mesh)(gs, xre, xim, warm_V)
 
 
 @torch.no_grad()

@@ -13,9 +13,10 @@ of ``qmps_tpu.workloads``): each configuration a frozen dataclass whose
 ``CONFIG_LADDER`` holds the JAX package's twelve entries and
 ``run_ladder`` runs them, each under ``utils.profiling.trace`` on
 request; ``python -m qmps_torch.workloads`` prints its metrics (on the
-card: every configuration defaults to it, in float32).  The JAX sweep
-config's ``use_mesh`` and the fused config's ``chunk`` (TPU workarounds)
-have no counterpart.
+card: every configuration defaults to it, in float32).  ``SweepConfig``'s
+``use_mesh`` shards the sweep over every card when there is more than
+one, as the JAX config does over its devices; the fused config's
+``chunk`` (a TPU workaround) has no counterpart.
 """
 from __future__ import annotations
 
@@ -126,13 +127,20 @@ class QuenchConfig:
 class SweepConfig:
     """Config 4: the chart phase-diagram sweep
     (``parallel.sweep_ground_states``), ``n_points`` couplings timed on
-    the shifted grid after one untimed call."""
+    the shifted grid after one untimed call.
+
+    ``use_mesh`` shards the points over every card (``parallel.make_mesh``)
+    when there is more than one, and runs unsharded on one.  Whether that
+    is faster is not measured: no run has had two cards, and on one card
+    two shards (the card named twice) run 2.1-2.6x slower than unsharded,
+    because their worker threads share the interpreter lock."""
 
     n_points: int = 256
     D: int = 2
     steps: int = 300
     g_min: float = 0.1
     g_max: float = 2.0
+    use_mesh: bool = False
     ansatz: str = "suN"
     refine_passes: int = 0
     device: str | None = None
@@ -141,9 +149,10 @@ class SweepConfig:
         return _grid(self.device, self.n_points, self.g_min, self.g_max)
 
     def sweep(self, gs: torch.Tensor):
-        from .parallel import sweep_ground_states
+        from .parallel import make_mesh, sweep_ground_states
 
-        return sweep_ground_states(gs, D=self.D, ansatz=self.ansatz, steps=self.steps,
+        mesh = make_mesh() if self.use_mesh and torch.cuda.device_count() > 1 else None
+        return sweep_ground_states(gs, D=self.D, ansatz=self.ansatz, steps=self.steps, mesh=mesh,
                                    refine_passes=self.refine_passes)
 
     def run(self) -> dict:

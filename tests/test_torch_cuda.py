@@ -102,6 +102,58 @@ def test_sweep_on_card():
     assert np.all(np.isfinite(e64)) and np.all(np.abs(e64 - to_np(es)) < 1e-3)
 
 
+@pytest.mark.cuda
+def test_sharded_sweep_on_card():
+    """The fused sweep sharded over a mesh of the card twice (two worker
+    threads, a stream each) against the same sweep unsharded: energies
+    within 1e-6 and K2/K3 launched once a step by each shard."""
+    from qmps_torch.parallel.mesh import Mesh
+
+    dev = require_cuda()
+    g = torch.tensor(np.linspace(0.2, 1.8, 16), device=dev)
+    es, _ = sweep_ground_states_fused(g, steps=60, restarts=2)
+    _lib.reset_launches()
+    es_s, As_s = sweep_ground_states_fused(g, steps=60, restarts=2, mesh=Mesh((dev, dev)))
+    torch.cuda.synchronize()
+    assert _lib.launches["energy_fwd"] == 2 * 61 and _lib.launches["energy_bwd"] == 2 * 60
+    assert es_s.shape == (16,) and As_s.shape == (16, 2, 2, 2) and es_s.is_cuda
+    assert (es_s - es).abs().max().item() < 1e-6
+
+
+@pytest.mark.cuda
+def test_sharded_sweeps_over_every_card():
+    """make_mesh() over two cards or more (skipped below two): the fused
+    sweep (8 points a card, 2 restarts, 60 steps) and the quench family (4
+    trajectories a card, K4/K5, 3 outer steps of 10) sharded against the
+    same calls unsharded: energies and rates within 1e-6, the outputs on
+    the first card, and K2 and K4 launched on every shard."""
+    from qmps_torch.parallel import make_mesh
+
+    dev = require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    mesh = make_mesh()
+    n = len(mesh)
+    g = torch.tensor(np.linspace(0.2, 1.8, 8 * n), device=dev)
+    es, _ = sweep_ground_states_fused(g, steps=60, restarts=2)
+    _lib.reset_launches()
+    es_s, As_s = sweep_ground_states_fused(g, steps=60, restarts=2, mesh=mesh)
+    torch.cuda.synchronize()
+    assert _lib.launches["energy_fwd"] == n * 61 and _lib.launches["energy_bwd"] == n * 60
+    assert es_s.device == As_s.device == mesh.devices[0]
+    assert (es_s - es).abs().max().item() < 1e-6
+    p0 = torch.tensor([0.31, -0.72, 1.05, 0.4, -0.2, 0.66, 0.13, -0.9, 0.5, 0.27, -0.35, 0.8, 0.05, -0.6, 0.22])
+    g1s = torch.linspace(0.1, 0.4, 4 * n, device=dev)
+    kw = dict(t_max=0.06, n_steps=3, inner_steps=10, params0=p0, engine="pallas")
+    _, les = batched_quench_sweep(1.5, g1s, **kw)
+    _lib.reset_launches()
+    _, les_s = batched_quench_sweep(1.5, g1s, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["tdvp_fwd"] == n * 30 and _lib.launches["tdvp_bwd"] == n * 30
+    assert les_s.device == mesh.devices[0] and les_s.shape == (4 * n, 3)
+    assert (les_s - les).abs().max().item() < 1e-6
+
+
 def _tdvp_inputs(B, seed, batched_w):
     """Left-canonical A, B the nearest isometry to A + 0.05 noise, and W a
     quench gate expm(-i h(g1) 0.04) per element or one shared."""
@@ -239,8 +291,8 @@ def test_k6_matches_plain(B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [9, 16, 25, 64, 256])
 def test_k7_k8_match_plain(N):
-    """K7 (N <= 16) and K8 (complex64; at N = 256 through its device-memory
-    path) against the plain version at complex128 on the same inputs,
+    """K7 (N <= 16) and K8 (complex64; at N = 256 over its 64 x 64 tiles)
+    against the plain version at complex128 on the same inputs,
     random matrices scaled by 1/sqrt(N) at a batch that is a multiple of no
     block, one of them zero: lam to 2e-5, v up to its phase to 1e-4, the
     zero element finite (lam = 0, v = 0); one launch."""
@@ -448,6 +500,43 @@ def test_k7_tensor_cores_match_plain(N):
     assert not to_np(M)[3].any() and lam[3] == 0 and not v[3].any()
     np.testing.assert_allclose(lam, lam_p, atol=2e-5)
     keep = np.arange(B) != 3
+    np.testing.assert_allclose(phase_aligned(v[keep], v_p[keep]), v_p[keep], atol=1e-4)
+    np.testing.assert_allclose(phase_aligned(w[keep], w_p[keep]), w_p[keep], atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [81, 256])
+def test_k8_tiles_match_plain(N):
+    """K8 above N = 64 (matpow_tc_tiles_kernel, the squarings over 64 x 64
+    tiles of the whole batch in 3xTF32; N = 81 padded to 128) against the
+    complex128 plain version on D = 9 and 16 TDVP transfer matrices and
+    one zero matrix: lam to 2e-5, v and the left vector off the same power
+    up to phase to 1e-4; one launch, and the same bits on a second call (no
+    atomics in the norms)."""
+    dev = require_cuda()
+    D, B = int(round(N ** 0.5)), 64
+    rng = np.random.default_rng(50 + N)
+    A = left_canonical(rng, B, D)
+    Bt = nearest_isometry(A + 0.03 * (rng.standard_normal(A.shape) + 1j * rng.standard_normal(A.shape)))
+    W = torch.linalg.matrix_exp(-1j * tfim_matrix(torch.from_numpy(rng.uniform(0.1, 0.4, B))) * 0.04)
+    E = transfer_dense(*mixed_transfer_with_gate(*(torch.as_tensor(t) for t in (A, Bt, W))))
+    E[7] = 0
+    E = E.to(dev, torch.complex64).contiguous()
+    _lib.reset_launches()
+    M = tpp._matrix_power_cuda(E, 48)
+    torch.cuda.synchronize()
+    assert _lib.launches["matpow_large"] == 1 and sum(_lib.launches.values()) == 1
+    assert torch.equal(tpp._matrix_power_cuda(E, 48), M)
+    lam, v = tpp._extract_eigpair(E.to(torch.complex128), M.to(torch.complex128))
+    w = tpp._left_vector(M.to(torch.complex128))
+    E64 = E.to(torch.complex128)  # the plain version, on the card
+    M_p = tpp._matrix_power_plain(E64, 48)
+    lam_p, v_p = tpp._extract_eigpair(E64, M_p)
+    w_p = tpp._left_vector(M_p)
+    lam, v, w, lam_p, v_p, w_p = (to_np(t) for t in (lam, v, w, lam_p, v_p, w_p))
+    assert lam[7] == 0 and not v[7].any() and not w[7].any()
+    np.testing.assert_allclose(lam, lam_p, atol=2e-5)
+    keep = np.arange(B) != 7
     np.testing.assert_allclose(phase_aligned(v[keep], v_p[keep]), v_p[keep], atol=1e-4)
     np.testing.assert_allclose(phase_aligned(w[keep], w_p[keep]), w_p[keep], atol=1e-4)
 

@@ -58,11 +58,12 @@ def _jax_dense(As, Bs, W):
     return jax.vmap(lambda a, b: jov.tdvp_objective(a, b, W))(As, Bs)
 
 
-@pytest.mark.parametrize("N", [9, 16, 25, 64])
+@pytest.mark.parametrize("N", [9, 16, 25, 64, 81, 256])
 def test_plain_matches_jax_interpret(N):
     """complex64 plain version against the JAX kernels in interpret mode
     (K7's at N = 9, 16; K8's at 25, 64, with its block-diagonal pack and
-    padding): lam to 2e-5, v up to its phase to 1e-5 (the phase of
+    padding, and at 81, 256, the N > 64 sizes the port's K8 squares over
+    tiles): lam to 2e-5, v up to its phase to 1e-5 (the phase of
     lam^(2^iters) is arbitrary in float32)."""
     E = _random(N).astype(np.complex64)
     lam_j, v_j = jpp.dominant_eig_batched(jnp.asarray(E), iters=48, interpret=True)
@@ -72,7 +73,7 @@ def test_plain_matches_jax_interpret(N):
     np.testing.assert_allclose(phase_aligned(to_np(v_t), np.asarray(v_j)), np.asarray(v_j), atol=1e-5)
 
 
-@pytest.mark.parametrize("N", [9, 16, 25, 64])
+@pytest.mark.parametrize("N", [9, 16, 25, 64, 81, 256])
 def test_plain_matches_numpy_eig(N):
     """complex128 plain version against numpy eig: lam and v (up to phase)
     to 1e-10."""
@@ -178,7 +179,7 @@ def test_left_vector_off_the_power_equals_a_second_chain(N):
 
 
 @pytest.mark.parametrize("batched_w", [False, True])
-@pytest.mark.parametrize("D", [3, 4, 8])
+@pytest.mark.parametrize("D", [3, 4, 8, 9])
 def test_tdvp_objective_pallas_larger_D(D, batched_w):
     """tdvp_objective_pallas at D >= 3 (B = 2): values against JAX's
     tdvp_objective_pallas in interpret mode (float32 kernels) to 2e-5 and
@@ -226,18 +227,27 @@ def _tf32_power(E: torch.Tensor, iters: int, split: bool) -> torch.Tensor:
     return torch.complex(R, I).to(E.dtype)
 
 
-@pytest.mark.parametrize("N", [9, 16, 64])
+def _padded(N: int) -> int:
+    """The size the kernels pad N to: a multiple of 16 up to 64 (K7, K8's
+    tensor-core blocks), of 64 above (K8's tiles)."""
+    return -(-N // 16) * 16 if N <= tpp.MAX_SHARED_N else -(-N // tpp.TILE) * tpp.TILE
+
+
+@pytest.mark.parametrize("N", [9, 16, 64, 81, 256])
 def test_k8_tensor_core_numerics(N):
     """Why K7 and K8 square in 3xTF32 and never in one-pass TF32 (ROADMAP,
-    "Numerics follow the reference"): 48 random N x N matrices, zero-padded
-    to a multiple of 16 as the kernels pad them (N = 9 to 16), 48
-    squarings, the pair read off each emulated power against the complex128
-    plain version.  3xTF32 stays within 2e-6 in lam and v (up to phase);
-    one-pass TF32 misses the card's 2e-5 gate on lam (chip_smoke.py)."""
-    E = torch.from_numpy(_random(N, B=48, seed=5))
+    "Numerics follow the reference"): 48 random N x N matrices (8 at
+    N = 256), zero-padded as the kernels pad them (N = 9 to 16, 81 to 128),
+    48 squarings, the pair read off each emulated power against the
+    complex128 plain version.  3xTF32 stays within 2e-6 in lam and v (up
+    to phase); one-pass TF32 misses the card's 2e-5 gate on lam
+    (chip_smoke.py).  At N = 81 and 256 this is the prediction for phase
+    11's gates on K8's tiles, made before their first chip run."""
+    B = 8 if N > 128 else 48
+    E = torch.from_numpy(_random(N, B=B, seed=5))
     lam_p, v_p = tpp._extract_eigpair(E, tpp._matrix_power_plain(E, 48))
-    NP = -(-N // 16) * 16
-    Ep = torch.zeros(48, NP, NP, dtype=E.dtype)
+    NP = _padded(N)
+    Ep = torch.zeros(B, NP, NP, dtype=E.dtype)
     Ep[:, :N, :N] = E
     errs = {}
     for split in (True, False):
@@ -248,6 +258,72 @@ def test_k8_tensor_core_numerics(N):
           f"v {errs[False][1]:.3g}")
     assert max(errs[True]) < 2e-6
     assert errs[False][0] > 2e-5
+
+
+def _tiles_power(E: torch.Tensor, iters: int) -> torch.Tensor:
+    """K8's schedule above N = 64 (csrc/matpow.cu::launch_tiles), emulated
+    in float32: E split into planes R, I (zero-padded to a multiple of 64)
+    and not normalised; each 64 x 64 tile's partial ||.||^2, summed in tile
+    order; every squaring computes RR, II and SS in 3xTF32 with S = R + I
+    summed from the stored planes (bitwise the plane an epilogue would have
+    written), scales re = RR - II and im = SS - RR - II by c = 1 / max(n2,
+    1e-30) of the previous power (the norm folded in, no pass of its own),
+    and the output pass scales the last product by rsqrt(max(n2, 1e-30))."""
+    N = E.shape[-1]
+    NP = -(-N // tpp.TILE) * tpp.TILE
+    R = torch.zeros(E.shape[0], NP, NP, dtype=torch.float32)
+    I = torch.zeros_like(R)
+    R[:, :N, :N], I[:, :N, :N] = E.real.float(), E.imag.float()
+
+    def product(X):
+        hi = _tf32(X)
+        lo = _tf32(X - hi)
+        return hi @ lo + lo @ hi + hi @ hi
+
+    def norm2(R, I):
+        T = NP // tpp.TILE
+        tiles = (R * R + I * I).reshape(-1, T, tpp.TILE, T, tpp.TILE).sum((2, 4)).reshape(-1, T * T)
+        n2 = tiles[:, 0]
+        for k in range(1, T * T):
+            n2 = n2 + tiles[:, k]
+        return torch.clamp(n2, min=1e-30)[:, None, None]
+
+    for _ in range(iters):
+        c = 1 / norm2(R, I)
+        RR, II, SS = product(R), product(I), product(R + I)
+        R, I = c * (RR - II), c * (SS - RR - II)
+    s = torch.rsqrt(norm2(R, I))
+    return torch.complex(s * R, s * I)[:, :N, :N].to(E.dtype)
+
+
+@pytest.mark.parametrize("N", [81, 256])
+def test_k8_tiles_schedule_matches_plain(N):
+    """K8's tiles above N = 64 emulated step for step (``_tiles_power``:
+    the S plane from the stored planes, the norm folded into the next
+    squaring, 3xTF32) against the complex128 plain version on 16 random
+    matrices (8 at N = 256) and a zero one: lam and v (up to phase) within
+    2e-6, the zero matrix's power zero and finite; and the same schedule
+    with iters = 0 is E / ||E||_F."""
+    B = 8 if N > 128 else 16
+    E = torch.from_numpy(_random(N, B=B, seed=9))
+    E[3] = 0
+    M = _tiles_power(E, 48)
+    assert torch.isfinite(torch.view_as_real(M)).all() and not M[3].any()
+    lam_p, v_p = tpp._extract_eigpair(E, tpp._matrix_power_plain(E, 48))
+    lam, v = tpp._extract_eigpair(E, M)
+    keep = np.arange(B) != 3
+    err_lam = np.abs(to_np(lam - lam_p)).max()
+    err_v = np.abs(phase_aligned(to_np(v)[keep], to_np(v_p)[keep]) - to_np(v_p)[keep]).max()
+    print(f"N = {N}: K8's tile schedule, 3xTF32, lam {err_lam:.3g} v {err_v:.3g}")
+    assert err_lam < 2e-6 and err_v < 2e-6
+    np.testing.assert_allclose(to_np(_tiles_power(E, 0)), to_np(tpp._matrix_power_plain(E, 0)), atol=1e-7)
+
+
+def test_matpow_work_floats_counts_the_tiles_workspace():
+    """The wrapper's workspace for K8 above N = 64: two sets of R, I planes
+    padded to a multiple of 64, and two sets of the tiles' partial norms."""
+    assert tpp.matpow_work_floats(133, 256) == 2 * (133 * 2 * 256 * 256 + 133 * 16)
+    assert tpp.matpow_work_floats(5, 81) == 2 * (5 * 2 * 128 * 128 + 5 * 4)
 
 
 def _phase_11_random_64():

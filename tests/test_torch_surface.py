@@ -38,8 +38,6 @@ ALLOWED = {
     ("utils.flops", "MXU_BF16"): "a TPU v5e unit's peak; the H100's are PEAK_F32, PEAK_TF32, HBM_BPS",
     ("utils.flops", "MXU_F32"): "a TPU v5e unit's peak; the H100's are PEAK_F32, PEAK_TF32, HBM_BPS",
     ("utils.flops", "VPU_F32"): "a TPU v5e unit's peak; the H100's are PEAK_F32, PEAK_TF32, HBM_BPS",
-    ("parallel.mesh", None): "a device mesh, useful only with a second card",
-    ("parallel", "make_mesh"): "parallel/mesh's, which waits for a second card",
 }
 
 

@@ -15,8 +15,8 @@ from qmps_torch import workloads as tw
 from qmps_torch.utils.profiling import Throughput, trace
 from qmps_tpu import workloads as jw
 
-#: the JAX configs' fields that are TPU workarounds (a mesh, the scan chunk)
-DROPPED = {"use_mesh", "chunk"}
+#: the JAX configs' fields that are TPU workarounds (the scan chunk)
+DROPPED = {"chunk"}
 
 #: the keys each JAX config's run() returns (qmps_tpu/workloads.py)
 SWEEP_KEYS = {"opts_per_sec", "seconds", "median_error", "max_error", "min_error"}
