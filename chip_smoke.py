@@ -73,11 +73,12 @@ Phases (any failure exits non-zero, and nothing is caught):
      and on the CUDA cores; K8's tiles on the 133 x 256 set timed against
      the plain bmm chain and one torch.linalg.eig + pick (against K8's
      first design above N = 64, in an earlier tree, by ``qmps_torch/kernel_ab.py
-     --old``);
-     ``matpow_small_kernel`` (K7 below N = 13) timed on the D = 3
-     objective's 4,096 N = 9 matrices;
+     --old``); ``matpow_small_kernel`` (K7 below kMatpowTcMinN, its own
+     row, "K7s") checked and timed on the D = 3 objective's 4,096 N = 9
+     matrices, raw and queued, against the plain version and eig;
  12. main path, the batched D >= 3 TDVP objective: tdvp_objective_pallas
-     and its Bs-gradient on 4,096 pairs at D = 4 (K7) and D = 8 (K8) and on
+     and its Bs-gradient on 4,096 pairs at D = 3 (matpow_small_kernel),
+     D = 4 (K7) and D = 8 (K8) and on
      1,024 pairs at D = 16 (K8's tiles, N = 256; the point count of the
      large-D sweeps) with a per-pair gate, every element against the dense
      objective at complex128 on the card (values 2e-5, gradients 2e-4
@@ -196,7 +197,13 @@ Phases (any failure exits non-zero, and nothing is caught):
      sharded runs through phase 5's float64 readout gates, K1-K3 launched
      by every shard; (b) phase 7's quench family cut to 5 outer steps (K4,
      K5) on the card twice against unsharded, its rates within 1e-6; (c)
-     the wall times of each, not gated, with the card count.
+     the Stiefel sweep at phase 14's D = 32 schedule (120 steps at the
+     "default" tier, a 60-step full-float32 tail) on 128 points, on the
+     card twice and unsharded: phase 14's float64 readout gates, the
+     full-float32 pin (precision "highest", allow_tf32 False) after each
+     call, and every shard's first steps under the tier and its polish
+     steps at full float32 (each retraction's precision recorded with its
+     thread); (d) the wall times of each, not gated, with the card count.
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
@@ -207,9 +214,9 @@ bound of K8's tiles is their products on the tensor cores, with the
 CUDA-core figure beside it), K4 with one squaring chain
 for both eigenvectors; K6's those of the cheapest pairwise contraction
 order of its network (``cheapest_contraction``).  All run on the float32
-CUDA cores (67 TFLOP/s) but K7's and K8's products and K6's W product,
-which run on the tensor cores in 3xTF32: three TF32 products each, over
-495 TFLOP/s.
+CUDA cores (67 TFLOP/s) but K7's products from kMatpowTcMinN on, K8's and
+K6's W product, which run on the tensor cores in 3xTF32: three TF32
+products each, over 495 TFLOP/s.
 Prints one JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.  Without a card, or run outside a checkout
 (no qmps_torch beside it), it exits 1 and prints no result.
@@ -237,14 +244,19 @@ GS_STEPS, TDVP_ITERS, TDVP_BATCH = 300, 48, 65536
 # (qmps_tpu/kernels/pallas_power.py:514-516, scripts/tpu_pallas_grad_bench.py:
 # 27-28): 4,096 pairs, 48 squarings; D = 4 runs K7 (N = 16), D = 8 K8 (N = 64)
 BIG_BATCH, BIG_CALLS = 4096, 20
-# D -> (the kernel, its counter, the pairs); D = 16 runs K8's tiles (N = 256)
-# on 1,024 pairs, the point count of the large-D sweeps (StiefelSweepConfig)
-BIG_DS = {4: ("K7", "matpow_small", BIG_BATCH), 8: ("K8", "matpow_large", BIG_BATCH),
-          16: ("K8t", "matpow_large", 1024)}
+# D -> (the kernel, its counter, the pairs); D = 3 runs K7 below
+# kMatpowTcMinN (matpow_small_kernel, N = 9); D = 16 runs K8's tiles
+# (N = 256) on 1,024 pairs, the point count of the large-D sweeps
+# (StiefelSweepConfig)
+BIG_DS = {3: ("K7s", "matpow_small", BIG_BATCH), 4: ("K7", "matpow_small", BIG_BATCH),
+          8: ("K8", "matpow_large", BIG_BATCH), 16: ("K8t", "matpow_large", 1024)}
 # phase 11: K8's tiles on random sets (N = 81, 144 and the timed 133 x 256)
 TILE_SETS, K8T_N = ((81, 1001), (144, 1001), (256, 133)), 256
-# phase 19: the quench family of phase 7 cut to 5 outer steps
+# phase 19: the quench family of phase 7 cut to 5 outer steps; the Stiefel
+# sweep at phase 14's D = 32 schedule ("default" tier, 60-step full-float32
+# tail) on 128 of its 1,024 points, read back on 4 host processes
 SHARD_QUENCH_STEPS = 5
+SHARD_STF_D, SHARD_STF_POINTS, SHARD_STF_WORKERS = 32, 128, 4
 # the brickwork family (tests/test_brickwork.py:109-129, 171-205)
 BW_BATCH, BW_G0, BW_G1 = 65536, 1.5, 0.2
 # the single-trajectory evolve pipeline at the JAX test's own size
@@ -411,7 +423,9 @@ def kernel_work(name, B, w_bytes=0):
     or per element).  K1-K5 and K7-K8 count their functions, each squaring
     in its three-product form (``csquare_flops``); K4 one squaring chain and
     the left vector read off its power; K7's and K8's products on the
-    tensor cores (``matpow_tc_flops``); K6 the cheapest contraction of its
+    tensor cores (``matpow_tc_flops``) but K7's below kMatpowTcMinN
+    ("K7s", N = 9: ``matpow_flops`` on the CUDA cores); K6 the cheapest
+    contraction of its
     network with W's product on the tensor cores (``k6_flops``), and U2's
     and U2''s whole rows, which its column reads touch."""
     aa, e = 16 * (CMUL + CMAC), 64 * CMAC  # build_AA, build_E
@@ -428,8 +442,10 @@ def kernel_work(name, B, w_bytes=0):
         "K5": (2 * aa + e + 2 * 96 * CMAC + 4 * 64 * CMAC + 60,
                64 + 64 + 32 + 32 + 8 + 4 + 64 + 64 + 128),
         "K6": (k6_flops()[0], 4 * 128 + 32 + 32 + 8),
-        # the main path's N: D = 4 and D = 8 transfer matrices, read and
-        # written once, their products on the tensor cores
+        # the main path's N: D = 3, 4 and 8 transfer matrices, read and
+        # written once; at D = 3 (matpow_small_kernel) the products on the
+        # CUDA cores, at D = 4 and 8 on the tensor cores
+        "K7s": (matpow_flops(9, TDVP_ITERS), 2 * 8 * 9 ** 2),
         "K7": (matpow_tc_flops(16, TDVP_ITERS)[1], 2 * 8 * 16 ** 2),
         "K8": (matpow_tc_flops(64, TDVP_ITERS)[1], 2 * 8 * 64 ** 2),
         # K8's tiles at N = 256 (phase 11's set, phase 12's D = 16)
@@ -1949,15 +1965,16 @@ def scars_path(dev, card):
     return out
 
 
-def sharded_sweeps(dev, card, g64, params0):
+def sharded_sweeps(dev, card, g64, params0, pool):
     """Phase 19: (a) phase 5's config-4 sweep and its represent step on
     ``make_mesh()`` (every card), on a mesh of the card twice and
     unsharded, each after an untimed run: energies within 1e-6 of the
     unsharded run, phase 5's float64 readout gates, K1-K3 launched by every
     shard; (b) phase 7's quench family, cut to SHARD_QUENCH_STEPS outer
     steps, on the card twice against unsharded: rates within 1e-6, K4 and
-    K5 launched by both shards; (c) the wall times, not gated.  Returns
-    the metrics for the JSON line."""
+    K5 launched by both shards; (c) the Stiefel sweep at the "default"
+    tier with a full-float32 tail (``stiefel_tier_sharded``); (d) the wall
+    times, not gated.  Returns the metrics for the JSON line."""
     from qmps_torch.algorithms.evolve import batched_quench_sweep
     from qmps_torch.ham.classical_baselines import host_energy_d2
     from qmps_torch.ham.exact import tfim_gs_energy_f64
@@ -2036,6 +2053,80 @@ def sharded_sweeps(dev, card, g64, params0):
             "phase 19: the sharded quench's rates equal the unsharded run's")
     out.update(shard_quench_seconds_card_twice=rates["the card twice"][1],
                shard_quench_seconds_unsharded=rates["unsharded"][1], shard_quench_rate_diff=diff_q)
+    out.update(stiefel_tier_sharded(dev, card, {t: meshes[t] for t in ("the card twice", "unsharded")}, pool))
+    return out
+
+
+def stiefel_tier_sharded(dev, card, meshes, pool):
+    """Phase 19 (c): the Stiefel sweep at phase 14's D = 32 schedule (180
+    steps, the first 120 at the "default" tier, one-pass TF32, the last 60
+    and the readout at full float32) on SHARD_STF_POINTS points of its grid,
+    on each mesh of ``meshes`` (the card twice: two worker threads), read
+    back in float64 on ``pool`` against the exact energy at phase 14's gates
+    (median < 5e-4, max < 5e-3, min > -1e-4).  After each call the
+    process is back at the package's full-float32 pin (precision "highest",
+    allow_tf32 False), and every step of every shard ran at the tier its
+    phase sets: each retraction's precision is recorded with its thread
+    (the first steps of both shards under the caller's tier, then the
+    polish steps of both at full float32).  Sharded and unsharded float32
+    energies are printed, not gated: cuBLAS may take other TF32 algorithms
+    for a shard's half of the batch.  No hand kernel."""
+    import threading
+
+    from qmps_torch.ham.exact import tfim_gs_energy_f64
+    from qmps_torch.kernels import _lib
+    from qmps_torch.parallel import sweep as psweep
+
+    kw = STF_RUNS[SHARD_STF_D]
+    steps, polish = kw["steps"], kw["polish_steps"]
+    gvals = np.linspace(*STF_G, SHARD_STF_POINTS) + 1e-3
+    exact = tfim_gs_energy_f64(gvals)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)  # a CPU rehearsal runs it too
+    polar, seen = psweep._polar_ns, []
+    psweep._polar_ns = lambda W, iters=10: seen.append((threading.get_ident(), torch.get_float32_matmul_precision())) \
+        or polar(W, iters)
+    out, runs = {}, {}
+    try:
+        for tag, mesh in meshes.items():
+            seen.clear()
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            es, As, rs = psweep.sweep_ground_states_stiefel(torch.tensor(gvals, dtype=torch.float32, device=dev),
+                                                            D=SHARD_STF_D, mesh=mesh, **kw)
+            sync()
+            dt = time.perf_counter() - t0
+            pin = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+            n = 1 if mesh is None else len(mesh)
+            threads = n if dev.type == "cuda" else 1  # the CPU's shards run in the caller's thread
+            low, tail = seen[:n * (steps - polish)], seen[n * (steps - polish):]
+            per_thread = [sorted({t for t, _ in part}) for part in (low, tail)]
+            t0 = time.perf_counter()
+            err = readout_f64(As, rs, gvals, pool, parts=SHARD_STF_WORKERS) - exact
+            t_read = time.perf_counter() - t0
+            runs[tag] = es.double()
+            print(f"phase 19 Stiefel sweep D = {SHARD_STF_D} on {tag} ({n} shards, {SHARD_STF_POINTS} points, {steps} "
+                  f"steps, the first {steps - polish} at 'default'): {dt:.4f} s; after it precision {pin[0]!r}, "
+                  f"allow_tf32 {pin[1]}; retractions at 'high' {sum(p == 'high' for _, p in low)} of {len(low)} "
+                  f"first steps in {len(per_thread[0])} threads, at 'highest' {sum(p == 'highest' for _, p in tail)} "
+                  f"of {len(tail)} polish steps in {len(per_thread[1])} threads; float64 readout ({t_read:.2f} s): "
+                  f"median {np.median(err):.4g}, max {err.max():.4g}, min {err.min():.4g} (on {card})")
+            require(es.shape == (SHARD_STF_POINTS,) and As.shape == (SHARD_STF_POINTS, 2, SHARD_STF_D, SHARD_STF_D)
+                    and np.all(np.isfinite(err)), f"phase 19 Stiefel {tag}: finite output of the expected shapes")
+            require(pin == ("highest", False), f"phase 19 Stiefel {tag}: the full-float32 pin after the call {pin}")
+            require(len(seen) == n * steps and all(p == "high" for _, p in low)
+                    and all(p == "highest" for _, p in tail) and all(len(t) == threads for t in per_thread),
+                    f"phase 19 Stiefel {tag}: each shard's first steps under the tier, its polish at full float32")
+            require(not any(_lib.launches.values()), f"phase 19 Stiefel {tag}: no hand kernel {dict(_lib.launches)}")
+            require(np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-4,
+                    f"phase 19 Stiefel {tag}: float64 readout against the exact energy")
+            key = "card_twice" if mesh is not None else "unsharded"
+            out.update({f"shard_stiefel_seconds_{key}": dt, f"shard_stiefel_max_error_{key}": float(err.max()),
+                        f"shard_stiefel_median_error_{key}": float(np.median(err))})
+    finally:
+        psweep._polar_ns = polar
+    diff = (runs["the card twice"] - runs["unsharded"]).abs().max().item()
+    print(f"phase 19 Stiefel sweep: |float32 energy, the card twice - unsharded| {diff:.3g} (not gated)")
+    out["shard_stiefel_energy_diff"] = diff
     return out
 
 
@@ -2568,7 +2659,8 @@ def main() -> int:
         E = transfer_dense(*mixed_transfer_with_gate(A, B, W)).contiguous()
         E_big[D] = (E, torch.cat([E, E.mH]).resolve_conj().contiguous())
     tags = ("E", "[E, E^dag]")
-    errs7 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (9, 16)]
+    # N = 9 runs matpow_small_kernel (K7s below), N = 16 the tensor cores
+    errs7_small, *errs7 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (9, 16)]
     errs7 += [matpow_check(tpp, f"D = 4 TDVP {t}", X) for t, X in zip(tags, E_big[4])]
     errs8 = [matpow_check(tpp, "random", random_matrices(rng, N, 1001, dev)) for N in (25, 64)]
     errs8 += [matpow_check(tpp, f"D = 8 TDVP {t}", X) for t, X in zip(tags, E_big[8])]
@@ -2636,12 +2728,12 @@ def main() -> int:
           f"{r8t['plain_ms']:.4f} ms, torch.linalg.eig + pick {r8t['library_ms']:.1f} ms; bound "
           f"{r8t['bound_ms']:.4f} ms ({r8t['bound_by']}, the products on the tensor cores; on the CUDA cores "
           f"{r8t['bound_ms_cuda_cores']:.4f} ms)")
-    # K7 below N = 13 (matpow_small_kernel, on the CUDA cores) on the D = 3
-    # objective's 4,096 E, drawn from a generator of its own
-    E3 = transfer_dense(*mixed_transfer_with_gate(*big_tdvp_inputs(np.random.default_rng(113), 3, dev)))
-    E3 = E3.contiguous()
-    errs7.append(matpow_check(tpp, "D = 3 TDVP E (matpow_small_kernel)", E3))
-    results["K7"]["max_abs_err"] = max(max(e) for e in errs7)
+    # K7 below kMatpowTcMinN (matpow_small_kernel, on the CUDA cores) on the
+    # D = 3 objective's 4,096 E, drawn from a generator of its own (phase
+    # 12's D = 3 inputs), with the random N = 9 set above
+    big[3] = big_tdvp_inputs(np.random.default_rng(113), 3, dev)
+    E3 = transfer_dense(*mixed_transfer_with_gate(*big[3])).contiguous()
+    errs7s = [errs7_small, matpow_check(tpp, "D = 3 TDVP E (matpow_small_kernel)", E3)]
     M3 = tpp._matrix_power_cuda(E3, TDVP_ITERS)
     M3_o = torch.empty_like(M3)
 
@@ -2650,16 +2742,20 @@ def main() -> int:
 
     ms3, ms3_q = cuda_ms(launch_small, 50), cuda_ms(launch_small, 50, queued=True)
     require(torch.equal(M3_o, M3), "matpow_small_kernel: timed launches reproduce its output (D = 3)")
-    nbytes3 = 2 * 8 * 81 * BIG_BATCH
+    results["K7s"] = dict(batch=BIG_BATCH, n=9, max_abs_err=max(max(e) for e in errs7s), ms=ms3, device_ms=ms3_q,
+                          plain_ms=cuda_ms(lambda: tpp._matrix_power_plain(E3, TDVP_ITERS), 5),
+                          library_ms=eig_library_ms(E3))
+    results["K7s"].update(zip(("bound_ms", "bound_by"), bound(*kernel_work("K7s", BIG_BATCH))))
+    # the bound of the same work with the products on the tensor cores
     tc3 = matpow_tc_flops(9, TDVP_ITERS)
-    results["K7"].update(ms_small_n9=ms3, device_ms_small_n9=ms3_q,
-                         bound_ms_small_n9=bound(matpow_flops(9, TDVP_ITERS) * BIG_BATCH, nbytes3)[0],
-                         bound_ms_small_n9_tensor_cores=bound(tc3[1] * BIG_BATCH, nbytes3, tc3[0] * BIG_BATCH)[0])
-    r7 = results["K7"]
-    print(f"matpow_small_kernel (K7 below N = 13) on the D = 3 objective's {BIG_BATCH} E (9x9): raw {ms3:.5f} ms, "
-          f"queued {ms3_q:.5f} ms; bound {r7['bound_ms_small_n9']:.5f} ms on the CUDA cores "
-          f"({r7['bound_ms_small_n9'] / ms3_q:.1%} of it), {r7['bound_ms_small_n9_tensor_cores']:.5f} ms with the "
-          f"products on the tensor cores")
+    results["K7s"]["bound_ms_tensor_cores"] = bound(tc3[1] * BIG_BATCH, kernel_work("K7s", BIG_BATCH)[1],
+                                                    tc3[0] * BIG_BATCH)[0]
+    r7s = results["K7s"]
+    print(f"matpow_small_kernel (K7 below kMatpowTcMinN) on the D = 3 objective's {BIG_BATCH} E (9x9, "
+          f"{TDVP_ITERS} squarings): raw {ms3:.5f} ms, queued {ms3_q:.5f} ms; plain {r7s['plain_ms']:.4f} ms, "
+          f"torch.linalg.eig + pick {r7s['library_ms']:.1f} ms; bound {r7s['bound_ms']:.5f} ms ({r7s['bound_by']}, "
+          f"on the CUDA cores; {r7s['bound_ms'] / ms3_q:.1%} of it queued), {r7s['bound_ms_tensor_cores']:.5f} ms "
+          f"with the products on the tensor cores")
     print(f"phase 11 in {time.perf_counter() - t11:.1f} s")
 
     # ---- 12. main path, the batched D >= 3 TDVP objective at 4,096 ----
@@ -2787,9 +2883,10 @@ def main() -> int:
     scars = scars_path(dev, card)
     print(f"phase 18 in {time.perf_counter() - t18:.1f} s")
 
-    # ---- 19. sharded sweeps: the config-4 sweep and the quench family ----
+    # ---- 19. sharded sweeps: the config-4 sweep, the quench family, the Stiefel sweep ----
     t19 = time.perf_counter()
-    sharded = sharded_sweeps(dev, card, g64, gs.params)
+    with host_pool(SHARD_STF_WORKERS) as pool:  # (c)'s readout processes import while (a) runs
+        sharded = sharded_sweeps(dev, card, g64, gs.params, pool)
     print(f"phase 19 in {time.perf_counter() - t19:.1f} s")
 
     names = {
@@ -2800,6 +2897,8 @@ def main() -> int:
         "K5": ("tdvp_bwd", "qmps_torch/csrc/tdvp_fused.cu", "qmps_tpu/kernels/tdvp_fused.py:247"),
         "K6": ("brickwork_overlap", "qmps_torch/csrc/brickwork_overlap.cu",
                "qmps_tpu/kernels/brickwork_pallas.py:34"),
+        # K7 below kMatpowTcMinN: its launches are phase 12's D = 3 run's (the counter matpow_small)
+        "K7s": ("matpow_small_kernel", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:245"),
         "K7": ("matpow_small", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:245"),
         "K8": ("matpow_large", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:332"),
         # K8 above N = 64: its launches are phase 12's D = 16 run's (the counter matpow_large)

@@ -24,29 +24,60 @@
 // multiply-adds against 16 N^2 bytes that the whole loop reads and writes
 // once: at N = 16 and 48 squarings ~1,000 flops a byte.
 //
-// K7 (4 < N <= 16), one warp an element.  On the CUDA cores
-// (matpow_small_kernel, 8 elements a block) every multiply-add costs a
-// shared-memory load of a row entry, so the 4,096 D = 4 E took 0.214 ms,
-// 37% of the float32 bound.  From kMatpowTcMinN on, K7 therefore squares
-// on the tensor cores as K8 does (matpow_tc_kernel at T = 1): the power
-// padded to 16 x 16, 36 mma a squaring, kTcElems elements a block, each
-// warp on its own planes, synchronised by __syncwarp and warp_sum alone.
-// Only R and I have planes (rows of 48 floats, 6 KB an element), S = R + I
-// is summed from the entries a thread loads, so all 4,096 elements of the
-// objective's call fit on the card at once (three planes, one wave and a
-// third: 6% slower).  What bounds it there is the issue rate, not the
-// tensor cores: the 3xTF32 splits of 48 fragment values, the epilogue and
-// the norm make ~400 instructions a squaring a warp for its 36 mma.
-// Measured (qmps_torch/kernel_ab.py; NVIDIA H100 80GB HBM3, 700 W): 0.128
-// ms on the 4,096 D = 4 E, 29% of its 0.0369 ms bound (the products' TF32
-// flops over 495 TFLOP/s), against 0.214 ms on the CUDA cores.  Padded to
-// 16, the tensor cores save nothing below N = 13: at N = 12 the two units
-// tie within 3% (0.126-0.130 ms), at N = 9 the CUDA cores take 0.068 ms
-// and the tensor cores 0.125-0.146.  matpow_small_kernel keeps the power
-// in shared memory (N^2 x 8 B) and the square in registers: lane l owns
-// column j = l % N and the rows r0, r0 + R, ... (r0 = l / N, R = 32 / N
-// lanes a column), so the column entry it loads is used ROWS times and the
-// row entries are broadcasts.  The norm is a __shfl_xor_sync butterfly.
+// K7 (4 < N <= 16).  Below kMatpowTcMinN (15), matpow_small_kernel on
+// the CUDA cores; from it, the tensor cores (matpow_tc_kernel at T = 1).
+//
+// matpow_small_kernel: each lane owns a block of the product, an outer-
+// product register block.  The power sits in shared memory, each element's
+// padded and laid out as small_map says; a k-step loads a block's BM row
+// entries (two k-steps at once, as float4s) and its BN column entries for
+// BM BN complex multiply-adds, four FFMA each.  Broadcasts do not save
+// the shared-memory pipe its bytes: it returns 128 bytes a cycle to the
+// lanes, whatever the addresses, so what counts is the bytes a lane loads
+// for its FFMAs (BM + BN complex per 4 BM BN), and large blocks.  The maps
+// (small_map; BM = ceil(N / 2), BN = ceil(N / (LP / 2)), padding zero):
+//   N = 5-10:  4 lanes an element, a quadrant each (BM = BN = 3, 4, 5),
+//              8 elements a warp; padded to 6, 8, 10;
+//   N = 11-14: 8 lanes an element, 2 x 4 blocks of 6 x 3 (N = 11, 12)
+//              and 7 x 4 (N = 13, 14), 4 elements a warp; padded to
+//              12 x 12 and 14 x 16.
+// Four lanes an element is the fewest that still give each of the card's
+// 528 schedulers a warp at the D = 3 objective's 4,096 elements (512
+// warps); more lanes an element load more bytes a FFMA, fewer leave
+// schedulers idle.  The row and element strides (LD, GAP, ES) keep every
+// access free of bank conflicts at N = 5, 6 and 9-12 (counted a quarter
+// warp at a time for float4 accesses, a half warp for float2).  The norm is folded into the next squaring, as
+// in K8's tiles: Y <- c Y Y with c = 1 / max(||Y||^2, 1e-30) of the stored
+// Y, whose reduction (each lane's block row by row, then an xor butterfly
+// over the element's lanes, in a fixed order: no atomics, the same bits on
+// every run) overlaps the next products; the output is Y / ||Y||.
+// What sets its pace at N = 9 (measured by qmps_torch/kernel_ab.py;
+// NVIDIA H100 80GB HBM3, 700 W): latency, one warp a scheduler.  A
+// squaring issues 900 FFMA a warp and a quarter as many other
+// instructions (loads, the scaling, the norm, the stores), yet 2,048
+// elements (half the schedulers idle) take as long as 4,096 (0.042 ms);
+// with two and four warps a scheduler, 8,192 take 0.074 and 16,384 0.138
+// ms, 0.034 ms a 4,096 once the latency is hidden.  The 4,096 D = 3 E:
+// 0.0425 ms against the first design's 0.0703 (one warp an element, a
+// shared load a multiply-add), 36% of the 0.0152 ms CUDA-core bound.  The
+// tensor cores lose below N = 15: padded to 16, a 9 x 9 square wastes 82%
+// of every mma and its 3xTF32 splits cost CUDA-core instructions besides
+// (0.128 ms at N = 9); at N = 13 and 14 the small kernel takes 0.104 and
+// 0.112 ms against 0.127, at N = 15 and 16 0.137 and 0.153 against 0.128
+// and 0.127.
+//
+// matpow_tc_kernel at T = 1: the power padded to 16 x 16, 36 mma a
+// squaring, kTcElems elements a block, each warp on its own planes,
+// synchronised by __syncwarp and warp_sum alone.  Only R and I have planes
+// (rows of 48 floats, 6 KB an element), S = R + I is summed from the
+// entries a thread loads, so all 4,096 elements of the objective's call
+// fit on the card at once (three planes, one wave and a third: 6% slower).
+// What bounds it there is the issue rate, not the tensor cores: the 3xTF32
+// splits of 48 fragment values, the epilogue and the norm make ~400
+// instructions a squaring a warp for its 36 mma.  Measured
+// (qmps_torch/kernel_ab.py; NVIDIA H100 80GB HBM3, 700 W): 0.128 ms on the
+// 4,096 D = 4 E, 29% of its 0.0369 ms bound (the products' TF32 flops over
+// 495 TFLOP/s).
 //
 // K8 (16 < N <= 64, D = 5..8): the tensor cores, which the CUDA cores'
 // 67 TFLOP/s leave far behind (495 TFLOP/s dense TF32).  One block an
@@ -124,68 +155,208 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// K7: 4 < N <= 16, one warp an element
+// K7 below kMatpowTcMinN: a block of the product a lane, on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kSmallWarps = 8;
+constexpr int kSmallWarps = 4;  // warps a block: one on each scheduler of an SM
+
+// The lane map of matpow_small_kernel<N>: LP lanes an element (4 or 8), the
+// product split into 2 x LP / 2 blocks of BM x BN (BM = ceil(N / 2), BN =
+// ceil(N / (LP / 2))), one a lane; the power in shared memory padded to
+// 2 BM x (LP / 2) BN, rows LD float2 apart, the second block row GAP
+// further, elements ES apart.  LD, GAP and ES are even, so every float4
+// access is 16-byte aligned, and chosen for the fewest shared-memory cycles
+// a squaring (bank conflicts counted a quarter warp at a time for float4
+// accesses, a half warp for float2).
+struct SmallMap {
+  int lp, ld, gap, es;
+};
+
+__host__ __device__ constexpr SmallMap small_map(int n) {
+  switch (n) {
+    case 5: return {4, 6, 0, 36};
+    case 6: return {4, 6, 0, 36};
+    case 7: return {4, 8, 2, 68};
+    case 8: return {4, 8, 2, 68};
+    case 9: return {4, 10, 0, 100};
+    case 10: return {4, 10, 0, 100};
+    case 11: return {8, 12, 0, 148};
+    case 12: return {8, 12, 0, 148};
+    case 13: return {8, 16, 2, 230};
+    case 14: return {8, 16, 2, 226};
+    case 15: return {8, 16, 2, 262};
+    default: return {8, 16, 2, 258};
+  }
+}
+
+template <int N>
+struct SmallShape {
+  static constexpr int LP = small_map(N).lp, LD = small_map(N).ld, GAP = small_map(N).gap, ES = small_map(N).es;
+  static constexpr int CG = LP / 2, BM = (N + 1) / 2, BN = (N + CG - 1) / CG, ELEMS = 32 / LP;
+  static constexpr int BYTES = kSmallWarps * ELEMS * ES * (int)sizeof(float2);
+  static_assert(LP == 4 || LP == 8, "four or eight lanes an element");
+  static_assert(LD % 2 == 0 && GAP % 2 == 0 && ES % 2 == 0, "float4 accesses stay 16-byte aligned");
+  static_assert(LD >= CG * BN && ES >= 2 * BM * LD + GAP, "the padded power fits its rows and its slot");
+  // where row r of an element's power starts
+  __host__ __device__ static constexpr int row(int r) { return r * LD + (r >= BM ? GAP : 0); }
+};
+
+// acc += a b, four FMAs in a fixed order (tests/test_torch_matpow.py's
+// emulation follows it)
+__device__ __forceinline__ void cmac(float2& acc, float ar, float ai, float br, float bi) {
+  acc.x = fmaf(ar, br, acc.x);
+  acc.x = fmaf(-ai, bi, acc.x);
+  acc.y = fmaf(ar, bi, acc.y);
+  acc.y = fmaf(ai, br, acc.y);
+}
+
+// ||element||^2 from its LP blocks, on each of its lanes: a lane sums its
+// block row by row (a row's entries in order, re then im), the rows in
+// order, then an xor butterfly over the element's lanes (the same bits on
+// each)
+template <int BM, int BN, int LP>
+__device__ __forceinline__ float block_norm2(const float2 (&acc)[BM][BN]) {
+  float n2 = 0.f;
+#pragma unroll
+  for (int t = 0; t < BM; ++t) {
+    float p = 0.f;
+#pragma unroll
+    for (int u = 0; u < BN; ++u) {
+      p = fmaf(acc[t][u].x, acc[t][u].x, p);
+      p = fmaf(acc[t][u].y, acc[t][u].y, p);
+    }
+    n2 += p;
+  }
+#pragma unroll
+  for (int m = 1; m < LP; m <<= 1) n2 += __shfl_xor_sync(0xffffffffu, n2, m);
+  return n2;
+}
+
+template <int BM, int BN>
+__device__ __forceinline__ void scale_block(float2 (&acc)[BM][BN], float c) {
+#pragma unroll
+  for (int t = 0; t < BM; ++t)
+#pragma unroll
+    for (int u = 0; u < BN; ++u) acc[t][u] = make_float2(c * acc[t][u].x, c * acc[t][u].y);
+}
+
+template <int BM, int BN, int LD>
+__device__ __forceinline__ void store_block(float2* q, const float2 (&acc)[BM][BN]) {
+#pragma unroll
+  for (int t = 0; t < BM; ++t)
+#pragma unroll
+    for (int u = 0; u < BN; ++u) q[t * LD + u] = acc[t][u];
+}
 
 template <int N>
 __global__ void __launch_bounds__(kSmallWarps * 32)
     matpow_small_kernel(const float2* __restrict__ E, float2* __restrict__ out, int B, int iters) {
+  using S = SmallShape<N>;
+  constexpr int LP = S::LP, LD = S::LD, ES = S::ES, CG = S::CG, BM = S::BM, BN = S::BN, ELEMS = S::ELEMS;
   constexpr int NN = N * N;
-  constexpr int R = 32 / N;              // lanes that share a column
-  constexpr int ROWS = (N + R - 1) / R;  // rows a lane computes
-  __shared__ float2 sm[kSmallWarps][NN];
+  extern __shared__ __align__(16) float2 small_sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kSmallWarps + warp;
-  if (b >= B) return;  // the whole warp: K7 synchronises warps only
-  float2* s = sm[warp];
-  const float2* e = E + (size_t)b * NN;
+  const long long b0 = ((long long)blockIdx.x * kSmallWarps + warp) * ELEMS;  // the warp's first element
+  if (b0 >= B) return;  // the whole warp: K7 synchronises warps only
+  const int nb = B - b0 < ELEMS ? (int)(B - b0) : ELEMS;  // elements present
+  float2* const s = small_sm + warp * ELEMS * ES;
 
-  float n2 = 0.f;
-  for (int k = lane; k < NN; k += 32) {
-    const float2 x = e[k];
-    s[k] = x;
-    n2 += x.x * x.x + x.y * x.y;
+  // zero the warp's slots (the padding stays zero), then E's entries
+  for (int k = lane; k < ELEMS * ES; k += 32) s[k] = make_float2(0.f, 0.f);
+  __syncwarp();
+  for (int k = lane; k < nb * NN; k += 32) {
+    const int e = k / NN, ij = k % NN;
+    s[e * ES + S::row(ij / N) + ij % N] = E[b0 * NN + k];
   }
-  float inv = rsqrtf(fmaxf(warp_sum(n2), kNormFloor));
-  for (int k = lane; k < NN; k += 32) st(s, k, inv * ld(s, k));
   __syncwarp();
 
-  const bool active = lane < R * N;
-  const int j = lane % N, r0 = lane / N;
+  // this lane's element and block: rows r0.. r0 + BM, columns c0.. c0 + BN
+  // of the padded power, whose padding rows and columns are zero and stay
+  // zero in its square, so a block is stored whole
+  const int q = lane % LP;
+  const int r0 = (q / CG) * BM, c0 = (q % CG) * BN;
+  float2* const m = s + (lane / LP) * ES;
+  float2* const rows = m + S::row(r0);  // the block's rows, from column 0
+  float2* const cols = m + c0;       // the block's columns, from row 0
+  float2 acc[BM][BN];
+#pragma unroll
+  for (int t = 0; t < BM; ++t)
+#pragma unroll
+    for (int u = 0; u < BN; ++u) acc[t][u] = rows[t * LD + c0 + u];
+
+  // Y <- E / ||E||; then iters times Y <- c Y Y with c = 1 / max(||Y||^2,
+  // 1e-30): the normalised power M = Y / ||Y|| squared (the norm folded into
+  // the next squaring, so its reduction overlaps the products), and the
+  // output Y / ||Y||
+  scale_block<BM, BN>(acc, rsqrtf(fmaxf(block_norm2<BM, BN, LP>(acc), kNormFloor)));
+  store_block<BM, BN, LD>(rows + c0, acc);
+  float n2 = block_norm2<BM, BN, LP>(acc);
+  __syncwarp();
   for (int it = 0; it < iters; ++it) {
-    c32 acc[ROWS];
 #pragma unroll
-    for (int t = 0; t < ROWS; ++t) acc[t] = mk(0.f, 0.f);
-    if (active) {
+    for (int t = 0; t < BM; ++t)
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        const c32 bkj = ld(s, k * N + j);
+      for (int u = 0; u < BN; ++u) acc[t][u] = make_float2(0.f, 0.f);
+    // k in pairs: the block's row entries (r, k), (r, k + 1) as one float4
+    // a row, and its columns of rows k and k + 1; for odd N the last k alone
 #pragma unroll
-        for (int t = 0; t < ROWS; ++t)
-          if (r0 + R * t < N) cfma(acc[t], ld(s, (r0 + R * t) * N + k), bkj);
+    for (int k = 0; k + 1 < N; k += 2) {
+      float4 a[BM];
+      float2 x[BN], y[BN];
+#pragma unroll
+      for (int t = 0; t < BM; ++t) a[t] = *reinterpret_cast<const float4*>(rows + t * LD + k);
+#pragma unroll
+      for (int u = 0; u < BN; ++u) {
+        x[u] = cols[S::row(k) + u];
+        y[u] = cols[S::row(k + 1) + u];
       }
-    }
-    n2 = 0.f;
 #pragma unroll
-    for (int t = 0; t < ROWS; ++t) n2 += norm2(acc[t]);  // zero where unowned
-    inv = rsqrtf(fmaxf(warp_sum(n2), kNormFloor));
+      for (int t = 0; t < BM; ++t)
+#pragma unroll
+        for (int u = 0; u < BN; ++u) cmac(acc[t][u], a[t].x, a[t].y, x[u].x, x[u].y);
+#pragma unroll
+      for (int t = 0; t < BM; ++t)
+#pragma unroll
+        for (int u = 0; u < BN; ++u) cmac(acc[t][u], a[t].z, a[t].w, y[u].x, y[u].y);
+    }
+    if constexpr (N % 2 == 1) {
+      float2 a[BM], x[BN];
+#pragma unroll
+      for (int t = 0; t < BM; ++t) a[t] = rows[t * LD + N - 1];
+#pragma unroll
+      for (int u = 0; u < BN; ++u) x[u] = cols[S::row(N - 1) + u];
+#pragma unroll
+      for (int t = 0; t < BM; ++t)
+#pragma unroll
+        for (int u = 0; u < BN; ++u) cmac(acc[t][u], a[t].x, a[t].y, x[u].x, x[u].y);
+    }
+    const float r = rsqrtf(fmaxf(n2, kNormFloor));
+    scale_block<BM, BN>(acc, r * r);
     __syncwarp();  // every lane has read the old power
-    if (active) {
-#pragma unroll
-      for (int t = 0; t < ROWS; ++t)
-        if (r0 + R * t < N) st(s, (r0 + R * t) * N + j, inv * acc[t]);
-    }
+    store_block<BM, BN, LD>(rows + c0, acc);
+    n2 = block_norm2<BM, BN, LP>(acc);
     __syncwarp();
   }
-  for (int k = lane; k < NN; k += 32) out[(size_t)b * NN + k] = s[k];
+  scale_block<BM, BN>(acc, rsqrtf(fmaxf(n2, kNormFloor)));
+  store_block<BM, BN, LD>(rows + c0, acc);  // this lane's own block: no barrier before
+  __syncwarp();
+  for (int k = lane; k < nb * NN; k += 32) {
+    const int e = k / NN, ij = k % NN;
+    out[b0 * NN + k] = s[e * ES + S::row(ij / N) + ij % N];
+  }
 }
 
 template <int N>
 int launch_small(const float2* E, float2* out, int B, int iters, cudaStream_t stream) {
-  const int grid = (B + kSmallWarps - 1) / kSmallWarps;
-  matpow_small_kernel<N><<<grid, kSmallWarps * 32, 0, stream>>>(E, out, B, iters);
+  constexpr int bytes = SmallShape<N>::BYTES;
+  if (bytes > 48 * 1024) {  // above the default limit only after the opt-in
+    const cudaError_t err =
+        cudaFuncSetAttribute(matpow_small_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  constexpr int per_block = kSmallWarps * SmallShape<N>::ELEMS;
+  const int grid = (B + per_block - 1) / per_block;
+  matpow_small_kernel<N><<<grid, kSmallWarps * 32, bytes, stream>>>(E, out, B, iters);
   return (int)cudaGetLastError();
 }
 
@@ -624,7 +795,7 @@ int launch_tiles(const float2* E, float2* out, float* work, int B, int N, int it
 
 // The smallest N that K7 squares on the tensor cores, padded to 16; below
 // it, on the CUDA cores (matpow_small_kernel).
-constexpr int kMatpowTcMinN = 13;
+constexpr int kMatpowTcMinN = 15;
 
 // K7.  E, out (B, N, N) complex64, contiguous on the device, 4 < N <= 16.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an

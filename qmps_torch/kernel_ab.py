@@ -31,10 +31,11 @@ warm-up, on:
 - K6: config 5's inputs (``workloads.BrickworkConfig``) at its 16,384 and
   at bench.py's 65,536;
 - K7: random complex normal matrices scaled by 1/sqrt(N), 4,096 at each of
-  N = 9, 12, 13, 16, and K7 and K8 on the D = 4 and D = 8 TDVP transfer
-  matrices of 4,096 such pairs (the objective's batch), E alone (4,096,
-  this tree's path) and [E, E^dag] (8,192, the earlier path); K8 above
-  N = 64 on 133 random 256 x 256 matrices;
+  N = 9, 12, 13, 14, 15, 16, and K7 on the D = 3 TDVP transfer matrices of
+  4,096 such pairs (N = 9, the objective's batch; this tree's alone also
+  at 2,048, 8,192 and 16,384 of them), K7 and K8 on the D = 4 and
+  D = 8 ones, E alone (4,096, this tree's path) and [E, E^dag] (8,192, the
+  earlier path); K8 above N = 64 on 133 random 256 x 256 matrices;
 - an empty kernel on K5's grid at 64 elements, queued and not: the floor
   of the card's and of the host's launch rate.
 Each tree is called through its own interface (``_interface``): an earlier
@@ -78,7 +79,9 @@ K5_BATCHES = (64, 1024, 4096, 8192, 16384, 65536)
 K2_BATCHES = (1024, 4096, 6144, 8192, 12288, 16384, 65536)
 K1_BATCHES, K1_ITERS = (1024, 4096, 8192, 16384, 65536), 40
 K6_BATCHES = (16384, 65536)
-K7_NS = (9, 12, 13, 16)
+K7_NS = (9, 12, 13, 14, 15, 16)
+#: the D = 3 E's batch, scaled: how matpow_small_kernel's time grows with the warps a scheduler
+K7_SCALE = (0.5, 2, 4)
 #: the limits of the new layouts, rewritten to force a layout: constant ->
 #: (its value with the new layout everywhere, with the old one everywhere)
 LAYOUT_LIMITS = {"tdvp_fused.cu": {"kQuadMaxB": (1 << 30, 0)},
@@ -358,6 +361,10 @@ def _run(args, dev, card, tmp: Path) -> int:
 
     # ---- K7 on random N x N matrices, K7 and K8 on the D = 4 and D = 8 TDVP matrices of 4,096 pairs ----
     rng, sets = np.random.default_rng(11), []
+    E3 = transfer_dense(*mixed_transfer_with_gate(*_pairs(np.random.default_rng(113), BIG, 3, 0.03, dev)))
+    sets.append(("K7", "D = 3 E", E3.contiguous()))
+    sets += [("K7", f"D = 3 E, {int(BIG * m)}", torch.cat([E3] * max(1, int(m)))[:int(BIG * m)].contiguous())
+             for m in K7_SCALE]
     for D, name in ((4, "K7"), (8, "K8")):
         E = transfer_dense(*mixed_transfer_with_gate(*_pairs(rng, BIG, D, 0.03, dev))).contiguous()
         sets += [(name, f"D = {D} E", E), (name, f"D = {D} [E, E^dag]", torch.cat([E, E.mH]).resolve_conj().contiguous())]
@@ -372,7 +379,8 @@ def _run(args, dev, card, tmp: Path) -> int:
         lam_p, v_p = tpp._extract_eigpair(X64, tpp._matrix_power_plain(X64, ITERS))
         # K7's "quad" tree squares on the tensor cores at every N, its "thread"
         # tree on the CUDA cores
-        trees = ("old", "new", "thread", "quad") if name == "K7" and "dag" not in tag else ("old", "new")
+        trees = (("new",) if tag.startswith("D = 3 E,") else
+                 ("old", "new", "thread", "quad") if name == "K7" and "dag" not in tag else ("old", "new"))
         outs = {k: torch.empty_like(X) for k in trees}
         work = (torch.empty(tpp.matpow_work_floats(n, N), dtype=torch.float32, device=dev)
                 if N > tpp.MAX_SHARED_N else None)

@@ -12,9 +12,10 @@ For a CUDA tensor (complex64) it launches hand-written kernels:
   eigenvector on request off the same power), which replaces
   ``qmps_tpu/kernels/pallas_power.py::_squaring_kernel`` and
   ``::_power_kernel``;
-- 4 < N <= 16 (D = 3, 4) and N > 16 (D >= 5): ``csrc/matpow.cu`` (K7, one
-  warp a matrix, from N = 13 on the tensor cores in 3xTF32, below on the
-  CUDA cores; K8 on the tensor cores in 3xTF32, one block a matrix up to
+- 4 < N <= 16 (D = 3, 4) and N > 16 (D >= 5): ``csrc/matpow.cu`` (K7:
+  below N = 15 on the CUDA cores, a block of the product a lane, four or
+  eight lanes a matrix; from N = 15 one warp a matrix on the tensor cores in
+  3xTF32; K8 on the tensor cores in 3xTF32, one block a matrix up to
   N = 64, above it a grid of 64 x 64 output tiles over the whole batch, one
   launch a squaring, the power in a workspace), which replace
   ``::_matpow_kernel_looped``

@@ -54,6 +54,14 @@ def shards_on_device() -> int:
     return getattr(_shard, "sharing", 1)
 
 
+def in_shard() -> bool:
+    """Whether the calling thread runs a shard of a sharded call (a worker
+    thread on CUDA, the caller's own thread in turn on the CPU).  Process-
+    wide state, such as the float32 matmul precision, is the caller's to
+    set: a shard that set it would set it for the other shards too."""
+    return getattr(_shard, "inside", False)
+
+
 def _concat(outs: list, device: torch.device):
     """The shards' outputs joined on their leading axis on ``device``:
     tensors, and tuples or lists of them, at any depth."""
@@ -77,7 +85,8 @@ def shard_over_sweep(f, mesh: Mesh | None, axis: str = "sweep"):
     caller's work, so the shards' host-bound drivers overlap; on the CPU
     in turn.  Each output (tensors, tuples of them) is concatenated on
     the first device.  A shard that raises makes the call raise; nothing
-    runs unsharded in its place.
+    runs unsharded in its place.  Inside ``f``, ``in_shard()`` is True and
+    ``shards_on_device()`` counts the shards of its device.
     """
     if mesh is None:
         return f
@@ -101,7 +110,8 @@ def shard_over_sweep(f, mesh: Mesh | None, axis: str = "sweep"):
 
         def run(i):
             dev = mesh.devices[i]
-            _shard.sharing = mesh.devices.count(dev)
+            outer = shards_on_device(), in_shard()
+            _shard.sharing, _shard.inside = mesh.devices.count(dev), True
             try:
                 if dev.type != "cuda":
                     with torch.set_grad_enabled(grad):
@@ -115,7 +125,7 @@ def shard_over_sweep(f, mesh: Mesh | None, axis: str = "sweep"):
                 stream.synchronize()
                 return out
             finally:
-                _shard.sharing = 1
+                _shard.sharing, _shard.inside = outer
 
         if any(d.type == "cuda" for d in mesh.devices):
             with ThreadPoolExecutor(n) as pool:

@@ -37,7 +37,7 @@ from ..core.gates import complex_type
 from ..core.linalg import _trace
 from ..core.paulis import I2, X, Z
 from ..kernels.energy_fused import energy_objective_fused
-from .mesh import shard_over_sweep, shards_on_device
+from .mesh import in_shard, shard_over_sweep, shards_on_device
 
 
 def tfim_matrix(g: torch.Tensor) -> torch.Tensor:
@@ -560,12 +560,20 @@ def _matmul_tier(precision: str | None):
     "default" (one bf16 pass on the TPU) -> one-pass TF32; "high" (three
     bf16 passes, near float32: cuBLAS has no counterpart) and "highest" ->
     full float32, the package's pin.  Restores the float32 matmul
-    precision and ``allow_tf32`` on exit."""
+    precision and ``allow_tf32`` on exit.
+
+    Both are process-wide: "default" raises inside a shard of a sharded
+    call (``mesh.in_shard``), where it would set the tier for the other
+    shards' threads too and could restore one of theirs on exit.  The
+    caller enters it around the sharded call instead."""
     if precision not in _TIERS:
         raise ValueError(f"precision must be one of {_TIERS}, not {precision!r}")
     if precision != "default":
         yield
         return
+    if in_shard():
+        raise RuntimeError('_matmul_tier("default") inside a shard: the float32 matmul precision is '
+                           "process-wide; enter the tier around the sharded call")
     saved = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
     torch.set_float32_matmul_precision("high")
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -580,8 +588,9 @@ def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, r
                             final_iters: int):
     """(init, advance, finish) of ``sweep_ground_states_stiefel`` on plain
     tensors, so a caller can start them from any state (the JAX package's
-    included).  ``advance`` takes a precision tier for its steps;
-    ``init`` and ``finish`` run at full float32."""
+    included).  Each runs at the matmul precision it is called under: a
+    caller that wants a tier enters ``_matmul_tier`` around the call, in its
+    own thread."""
     from ..optim.riemann import _project_tangent, isometry_energy_warm
 
     def loss(V, r, hs, iters):
@@ -599,22 +608,21 @@ def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, r
         r0 = torch.eye(D, dtype=V0.dtype, device=V0.device) / D ** 0.5
         return hs, V0, torch.zeros_like(V0), r0.expand(V0.shape[0], D, D)
 
-    def advance(V, M, r, hs, length, precision=None):
-        """``length`` heavy-ball steps on (V, M, r) at ``precision``."""
-        with _matmul_tier(precision):
-            for _ in range(length):
-                with torch.enable_grad():
-                    Vg = V.detach().requires_grad_()
-                    es, r_new = loss(Vg, r, hs, recycle_iters)
-                    # points are independent: the gradient of the sum is
-                    # every point's gradient, and torch's .grad is already
-                    # conj(jax.grad), so sweep.py:696's G.conj() goes
-                    (G,) = torch.autograd.grad(es.sum(), Vg)
-                with torch.no_grad():
-                    M = momentum * M + _project_tangent(V, G)
-                    V = _polar_ns(V - lr * M)
-                    M = _project_tangent(V, M)
-                r = r_new.detach()
+    def advance(V, M, r, hs, length):
+        """``length`` heavy-ball steps on (V, M, r)."""
+        for _ in range(length):
+            with torch.enable_grad():
+                Vg = V.detach().requires_grad_()
+                es, r_new = loss(Vg, r, hs, recycle_iters)
+                # points are independent: the gradient of the sum is every
+                # point's gradient, and torch's .grad is already
+                # conj(jax.grad), so sweep.py:696's G.conj() goes
+                (G,) = torch.autograd.grad(es.sum(), Vg)
+            with torch.no_grad():
+                M = momentum * M + _project_tangent(V, G)
+                V = _polar_ns(V - lr * M)
+                M = _project_tangent(V, M)
+            r = r_new.detach()
         return V, M, r
 
     @torch.no_grad()
@@ -674,11 +682,13 @@ def sweep_ground_states_stiefel(gs, D: int, steps: int = 300, lr: float = 0.08, 
     environment that cannot keep up with the state's transfer gap lets it
     exploit the unconverged readout (energies below the ground state).
 
-    ``precision`` / ``polish_steps``: the first ``steps - polish_steps``
-    steps run at ``precision`` (``_matmul_tier``: "default" is one-pass
-    TF32 on the card; "high", "highest" and None full float32), the last
-    ``polish_steps`` (clamped to [0, steps]) and the final
-    ``final_iters`` readout always at full float32.
+    ``precision`` / ``polish_steps``: the QR of the starts and the first
+    ``steps - polish_steps`` steps run at ``precision`` (``_matmul_tier``:
+    "default" is one-pass TF32 on the card; "high", "highest" and None full
+    float32), the last ``polish_steps`` (clamped to [0, steps]) and the
+    final ``final_iters`` readout always at full float32.  The tier is set
+    once, in the caller's thread, around every shard of the first phase,
+    and the package's full-float32 pin is back when the sweep returns.
 
     ``point_chunk`` bounds the points a descent program takes at once,
     for memory: None is ``stiefel_point_chunk`` (all points on the CPU;
@@ -711,27 +721,46 @@ def _stiefel_sweep_from(gs, xre, xim, warm_V, D, steps, lr, momentum, restarts, 
     """sweep_ground_states_stiefel's body from given starts: ``xre``,
     ``xim`` (n, restarts, 2D, D) float64 normals on the CPU, ``warm_V``
     (n, 2D, D) or None.  The points are sharded over ``mesh``, each shard
-    in chunks of its own."""
+    in chunks of its own, in two sharded calls, as the JAX package's body
+    is split into its programs: ``init`` and the ``steps - polish`` steps
+    under ``_matmul_tier(precision)``, entered here in the caller's thread
+    once for every shard (the tier is process-wide state), then the
+    ``polish`` steps and ``finish`` at full float32 on the state (V, M, r,
+    hs) the first call leaves."""
     cdtype, rdtype = default_dtypes(gs.device, gs)
     init, advance, finish = _stiefel_sweep_programs(D, lr, momentum, restarts, recycle_iters, final_iters)
 
+    def chunk_of(gs_b):
+        nb = gs_b.shape[0]
+        return point_chunk or stiefel_point_chunk(nb, D, restarts, recycle_iters, cdtype, gs_b.device)
+
     def descend(gs_b, xre_b, xim_b, warm_b):
-        """The descent of a block of points, in chunks, on gs_b's device."""
-        nb, dev = gs_b.shape[0], gs_b.device
-        chunk = point_chunk or stiefel_point_chunk(nb, D, restarts, recycle_iters, cdtype, dev)
+        """init and the first steps of a block of points, in chunks, on
+        gs_b's device: (V, M, r, hs), a row a point x restart."""
+        dev, chunk = gs_b.device, chunk_of(gs_b)
         outs = []
-        for i in range(0, nb, chunk):
+        for i in range(0, gs_b.shape[0], chunk):
             sl = slice(i, i + chunk)
             m = gs_b[sl].shape[0]
             warm = None if warm_b is None else warm_b[sl].to(dev, cdtype)
             hs, V, M, r = init(gs_b[sl], *(x[sl].reshape(m * restarts, 2 * D, D).to(dev, rdtype)
                                            for x in (xre_b, xim_b)), warm)
-            V, M, r = advance(V, M, r, hs, steps - polish, precision)
-            V, M, r = advance(V, M, r, hs, polish)
-            outs.append(finish(V, r, hs))
+            outs.append((*advance(V, M, r, hs, steps - polish), hs))
+        return tuple(torch.cat([o[j] for o in outs]) for j in range(4))
+
+    def polish_and_finish(gs_b, V, M, r, hs):
+        """The polish steps and ``finish`` of the same block, chunk by chunk."""
+        chunk = chunk_of(gs_b) * restarts
+        outs = []
+        for i in range(0, V.shape[0], chunk):
+            sl = slice(i, i + chunk)
+            Vc, _, rc = advance(V[sl], M[sl], r[sl], hs[sl], polish)
+            outs.append(finish(Vc, rc, hs[sl]))
         return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
 
-    return shard_over_sweep(descend, mesh)(gs, xre, xim, warm_V)
+    with _matmul_tier(precision):
+        state = shard_over_sweep(descend, mesh)(gs, xre, xim, warm_V)
+    return shard_over_sweep(polish_and_finish, mesh)(gs, *state)
 
 
 @torch.no_grad()

@@ -121,6 +121,34 @@ def test_sharded_sweep_on_card():
 
 
 @pytest.mark.cuda
+def test_stiefel_default_tier_on_the_card_twice():
+    """The Stiefel sweep at the "default" tier (one-pass TF32) with a
+    full-float32 tail (bench.py's D = 32 schedule: 180 steps, 60 of them
+    polish) on 16 points, on the card twice (two shards, a worker thread
+    each) and unsharded: each read back in float64 within chip_smoke.py
+    phase 14's gates (median < 5e-4, max < 5e-3, min > -1e-4), and each
+    call leaves the package's full-float32 pin behind (precision
+    "highest", allow_tf32 False).  Not bit-equal: cuBLAS may take other
+    TF32 algorithms for a shard's half of the batch."""
+    from qmps_torch.ham.exact import tfim_gs_energy_f64
+    from qmps_torch.parallel.mesh import Mesh
+    from qmps_torch.parallel.sweep import sweep_ground_states_stiefel
+    from qmps_torch.utils.host_eval import device_to_host_c128, host_f64_sweep_energies, tfim_h64_batch
+
+    dev = require_cuda()
+    g = np.linspace(0.1, 2.0, 16) + 1e-3
+    exact = tfim_gs_energy_f64(g)
+    for mesh in (Mesh((dev, dev)), None):
+        es, As, rs = sweep_ground_states_stiefel(torch.tensor(g, dtype=torch.float32, device=dev), D=32, steps=180,
+                                                 precision="default", polish_steps=60, mesh=mesh)
+        torch.cuda.synchronize()
+        assert (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32) == ("highest", False)
+        err = host_f64_sweep_energies(device_to_host_c128(As), device_to_host_c128(rs), tfim_h64_batch(g))[0] - exact
+        assert es.shape == (16,) and np.all(np.isfinite(err))
+        assert np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-4, err
+
+
+@pytest.mark.cuda
 def test_sharded_sweeps_over_every_card():
     """make_mesh() over two cards or more (skipped below two): the fused
     sweep (8 points a card, 2 restarts, 60 steps) and the quench family (4
@@ -473,10 +501,11 @@ def test_k3_layouts_match_plain(B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [9, 12, 13, 16])
+@pytest.mark.parametrize("N", range(5, 17))
 def test_k7_tensor_cores_match_plain(N):
-    """K7 at N = 9, 12, 13 and 16, on whichever unit its launcher picks
-    there (the tensor cores in 3xTF32, padded to 16, from kMatpowTcMinN),
+    """K7 at every N from 5 to 16, on whichever kernel its launcher picks
+    there (matpow_small_kernel's lane blocks on the CUDA cores below
+    kMatpowTcMinN, the tensor cores in 3xTF32, padded to 16, from it),
     against the complex128 plain version on random matrices scaled by
     1/sqrt(N), a batch that is a multiple of no block, one matrix zero:
     lam to 2e-5, v and the left vector read off the same power up to phase

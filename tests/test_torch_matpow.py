@@ -9,6 +9,9 @@ with them holds at the float32 floor; parity with numpy and the dense
 objective is at complex128.  On the CPU the port runs its plain versions;
 the CUDA kernels are held against them on the card (test_torch_cuda.py).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -317,6 +320,125 @@ def test_k8_tiles_schedule_matches_plain(N):
     print(f"N = {N}: K8's tile schedule, 3xTF32, lam {err_lam:.3g} v {err_v:.3g}")
     assert err_lam < 2e-6 and err_v < 2e-6
     np.testing.assert_allclose(to_np(_tiles_power(E, 0)), to_np(tpp._matrix_power_plain(E, 0)), atol=1e-7)
+
+
+def _small_maps() -> dict:
+    """csrc/matpow.cu's ``small_map``, read off the source: N -> (LP, LD,
+    GAP, ES), matpow_small_kernel's lanes an element and the layout of its
+    power in shared memory."""
+    src = (Path(tpp.__file__).resolve().parents[1] / "csrc" / "matpow.cu").read_text()
+    body = src[src.index("constexpr SmallMap small_map(int n)"):]
+    body = body[:body.index("\n}\n")]
+    four = r"\{(\d+), (\d+), (\d+), (\d+)\};"
+    out = {int(n): tuple(int(x) for x in v) for n, *v in re.findall(r"case (\d+): return " + four, body)}
+    out[16] = tuple(int(x) for x in re.search(r"default: return " + four, body).groups())
+    return out
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a b + c rounded once (the product is exact in float64; the
+    sum rounds there first, a double rounding the kernel's FFMA does not
+    make, rarely and below this file's tolerances)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _small_power(E: torch.Tensor, iters: int) -> torch.Tensor:
+    """matpow_small_kernel (csrc/matpow.cu, K7 below kMatpowTcMinN)
+    emulated step for step in float32.  LP lanes an element; the power is
+    zero-padded to 2 BM x CG BN (CG = LP / 2, BM = ceil(N / 2), BN =
+    ceil(N / CG)) and lane q owns block (q // CG, q % CG); each product
+    entry takes its four FMAs (``cmac``: re += ar br, re -= ai bi, im +=
+    ar bi, im += ai br) in k order; ``block_norm2`` sums a lane's block row
+    by row (a row's entries in order, re then im), the rows in order, then
+    the xor butterfly over the element's lanes (1, 2, ...).  Y = E / ||E||,
+    then iters times Y = c Y Y with c = r r, r = rsqrt(max(||Y||^2,
+    1e-30)) of the stored Y (the norm folded into the next squaring); the
+    output Y rsqrt(max(||Y||^2, 1e-30))."""
+    N, B = E.shape[-1], E.shape[0]
+    LP, LD, GAP, ES = _small_maps()[N]
+    CG = LP // 2
+    BM, BN = -(-N // 2), -(-N // CG)
+    assert LP in (4, 8) and LD % 2 == GAP % 2 == ES % 2 == 0 and LD >= CG * BN and ES >= 2 * BM * LD + GAP
+    R = torch.zeros(B, 2 * BM, CG * BN)
+    I = torch.zeros_like(R)
+    R[:, :N, :N], I[:, :N, :N] = E.real.float(), E.imag.float()
+    lane = torch.arange(LP)
+
+    def norm2(R, I):
+        Rb, Ib = R.reshape(B, 2, BM, CG, BN), I.reshape(B, 2, BM, CG, BN)
+        n2 = torch.zeros(B, 2, CG)
+        for t in range(BM):
+            p = torch.zeros(B, 2, CG)
+            for u in range(BN):
+                p = _fma(Rb[:, :, t, :, u], Rb[:, :, t, :, u], p)
+                p = _fma(Ib[:, :, t, :, u], Ib[:, :, t, :, u], p)
+            n2 = n2 + p
+        lanes = n2.reshape(B, LP)
+        m = 1
+        while m < LP:
+            lanes = lanes + lanes[:, lane ^ m]
+            m <<= 1
+        assert torch.equal(lanes, lanes[:, :1].expand(B, LP))  # every lane the same bits
+        return lanes[:, 0, None, None]
+
+    def rsqrt(n2):
+        return torch.rsqrt(torch.clamp(n2, min=1e-30))
+
+    s = rsqrt(norm2(R, I))
+    R, I = s * R, s * I
+    n2 = norm2(R, I)
+    for _ in range(iters):
+        aR, aI = torch.zeros_like(R), torch.zeros_like(I)
+        for k in range(N):
+            ar, ai, br, bi = R[:, :, k:k + 1], I[:, :, k:k + 1], R[:, k:k + 1], I[:, k:k + 1]
+            aR = _fma(-ai, bi, _fma(ar, br, aR))
+            aI = _fma(ai, br, _fma(ar, bi, aI))
+        r = rsqrt(n2)
+        c = r * r
+        R, I = c * aR, c * aI
+        n2 = norm2(R, I)
+    assert not R[:, N:].any() and not R[:, :, N:].any()  # the padding stays zero
+    s = rsqrt(n2)
+    return torch.complex(s * R, s * I)[:, :N, :N]
+
+
+def _jax_component_power(E: np.ndarray, iters: int) -> np.ndarray:
+    """JAX's K7, ``_matrix_power_batched_component`` in interpret mode, on
+    a complex64 batch laid out as its caller lays it out (component-major
+    planes, the batch padded with zeros to 8 x 128)."""
+    B, N = E.shape[0], E.shape[-1]
+    Bp = -(-B // 1024) * 1024
+    comp = np.zeros((N * N, Bp), np.complex64)
+    comp[:, :B] = E.reshape(B, N * N).T
+    planes = [jnp.asarray(x.reshape(N, N, Bp // 128, 128)) for x in (comp.real, comp.imag)]
+    Mre, Mim = jpp._matrix_power_batched_component(*planes, iters, tile_rows=8, interpret=True)
+    M = np.asarray(Mre).reshape(N * N, Bp) + 1j * np.asarray(Mim).reshape(N * N, Bp)
+    return M.T[:B].reshape(B, N, N)
+
+
+@pytest.mark.parametrize("N", range(5, 13))
+def test_k7_small_schedule_matches_plain_and_jax(N):
+    """matpow_small_kernel's lane blocks and schedule, emulated
+    (``_small_power``), on 16 random matrices and a zero one, 48
+    squarings: lam and v (up to phase) within 2e-6 of the complex128 plain
+    version and of JAX's interpret-mode K7, all read through the same
+    complex128 extract; the zero matrix's power zero and finite; iters = 0
+    is E / ||E||_F."""
+    E = torch.from_numpy(_random(N, B=17, seed=30 + N).astype(np.complex64))
+    E[3] = 0
+    M = _small_power(E, 48)
+    assert torch.isfinite(torch.view_as_real(M)).all() and not M[3].any()
+    E64 = E.to(torch.complex128)
+    lam, v = tpp._extract_eigpair(E64, M.to(torch.complex128))
+    keep = np.arange(17) != 3
+    for tag, ref in (("plain", tpp._matrix_power_plain(E64, 48)),
+                     ("JAX", torch.from_numpy(_jax_component_power(E.numpy(), 48)).to(torch.complex128))):
+        lam_r, v_r = tpp._extract_eigpair(E64, ref)
+        err_lam = np.abs(to_np(lam - lam_r)).max()
+        err_v = np.abs(phase_aligned(to_np(v)[keep], to_np(v_r)[keep]) - to_np(v_r)[keep]).max()
+        print(f"N = {N}: matpow_small_kernel's schedule against the {tag} power: lam {err_lam:.3g} v {err_v:.3g}")
+        assert err_lam < 2e-6 and err_v < 2e-6, tag
+    np.testing.assert_allclose(to_np(_small_power(E, 0)), to_np(tpp._matrix_power_plain(E64, 0)), atol=1e-7)
 
 
 def test_matpow_work_floats_counts_the_tiles_workspace():

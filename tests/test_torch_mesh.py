@@ -207,6 +207,78 @@ def test_stiefel_sweep_sharded_matches_jax_sharded():
         np.testing.assert_allclose(to_np(a), np.asarray(b), atol=1e-9)
 
 
+def _pin():
+    return torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+
+
+def test_matmul_tier_default_raises_inside_a_shard():
+    """The float32 matmul precision is process-wide: the "default" tier
+    raises inside a shard (here the CPU's, which run in the caller's thread,
+    in turn), the full-float32 tiers do not, and outside a shard "default"
+    is entered as before and restores the pin."""
+    seen = []
+
+    def f(x):
+        seen.append(tmesh.in_shard())
+        for tier in (None, "highest", "high"):
+            with tsweep._matmul_tier(tier):
+                pass
+        with pytest.raises(RuntimeError, match="inside a shard"), tsweep._matmul_tier("default"):
+            pass
+        return x
+
+    assert not tmesh.in_shard() and _pin() == ("highest", False)
+    shard_over_sweep(f, Mesh(("cpu",) * 2))(torch.zeros(2))
+    assert seen == [True, True] and not tmesh.in_shard() and _pin() == ("highest", False)
+    with tsweep._matmul_tier("default"):
+        assert _pin() == ("high", True)
+    assert _pin() == ("highest", False)
+
+
+def test_stiefel_default_tier_sharded_equals_unsharded_and_leaves_the_pin(monkeypatch):
+    """The Stiefel sweep at the "default" tier with a polish tail, sharded
+    over two cpu entries: every shard's first steps run under the tier,
+    which the caller sets once, and every shard's polish steps at full
+    float32 (the tier each step's polar retraction sees, recorded); the
+    full-float32 pin is back afterwards, and the result equals the
+    unsharded run to 1e-9."""
+    gv = torch.linspace(0.4, 1.6, 8, dtype=torch.float64)
+    kw = dict(D=4, steps=40, precision="default", polish_steps=15)
+    polar, tiers = tsweep._polar_ns, []
+    monkeypatch.setattr(tsweep, "_polar_ns",
+                        lambda W, iters=10: tiers.append(torch.get_float32_matmul_precision()) or polar(W, iters))
+    out_l = sweep_ground_states_stiefel(gv, **kw)
+    assert tiers == ["high"] * 25 + ["highest"] * 15 and _pin() == ("highest", False)
+    tiers.clear()
+    out_s = sweep_ground_states_stiefel(gv, mesh=Mesh(("cpu",) * 2), **kw)
+    assert tiers == ["high"] * 2 * 25 + ["highest"] * 2 * 15 and _pin() == ("highest", False)
+    for a, b in zip(out_s, out_l):
+        np.testing.assert_allclose(to_np(a), to_np(b), atol=1e-9)
+
+
+def test_stiefel_two_phase_sharded_matches_jax_sharded():
+    """The two-phase schedule sharded over 8 cpu entries against the JAX
+    package's programs on its 8 virtual devices from the same numpy
+    normals: make_advance(steps - polish, "default"), then
+    make_advance(polish), then finish (D = 4, 8 points x 2 restarts, 60
+    steps, 20 of them polish): energies, As and environments to 1e-9."""
+    D, R, n, steps, polish = 4, 2, 8, 60, 20
+    rng = np.random.default_rng(6)
+    gs = np.linspace(0.4, 1.6, n)
+    xre, xim = rng.standard_normal((2, n, R, 2 * D, D))
+    j_init, j_make_advance, j_finish = jsweep._stiefel_sweep_programs(D, 0.08, 0.9, R, 24, 200, jnp.float64,
+                                                                      jax_make_mesh())
+    hs, V, M, r = j_init(jnp.asarray(gs), *(jnp.asarray(x.reshape(n * R, 2 * D, D)) for x in (xre, xim)), None)
+    V, M, r = j_make_advance(steps - polish, "default")(V, M, r, hs)
+    V, M, r = j_make_advance(polish)(V, M, r, hs)
+    out_j = j_finish(V, r, hs)
+    out_t = tsweep._stiefel_sweep_from(*(torch.from_numpy(x) for x in (gs, xre, xim)), None, D, steps, 0.08, 0.9,
+                                       R, 24, 200, mesh=MESH, precision="default", polish=polish)
+    assert _pin() == ("highest", False)
+    for a, b in zip(out_t, out_j):
+        np.testing.assert_allclose(to_np(a), np.asarray(b), atol=1e-9)
+
+
 def test_quantum_poincare_sweep_sharded_matches_vmap():
     rng = np.random.default_rng(0)
     y0s = torch.from_numpy(rng.uniform(0.5, 1.5, (8, 4)))
