@@ -11,10 +11,14 @@ Each C entry point returns ``cudaGetLastError()`` after its launch, and
 
 ``launches`` holds one plain-integer launch counter per kernel; a wrapper
 adds one (:func:`count`) where it launches its kernel and nowhere else.
+Each wrapper is decorated by :func:`launcher` with its key in ``launches``,
+so its whole host side, validation to count, is the program's span
+``kernel.<key>`` (``utils/profiling``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +26,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+from ..utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -64,6 +70,22 @@ def count(name: str) -> None:
     """One launch of kernel ``name``."""
     with _count_lock:
         launches[name] += 1
+
+
+def launcher(name: str):
+    """Decorator of kernel ``name``'s wrapper: each call runs inside the span
+    ``kernel.<name>``."""
+    span_name = "kernel." + name
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with profiling.span(span_name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
 
 
 def _sources(src_dir: Path = SRC_DIR) -> list[Path]:

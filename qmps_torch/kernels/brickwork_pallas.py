@@ -39,6 +39,7 @@ def _overlap_operands(U1, U2, U1p, U2p, Mr, Ml, W):
     return tuple(_dense(t) for t in (U1, U2, U1p, U2p, Ml, Mr, W))
 
 
+@_lib.launcher("brickwork_overlap")
 def _overlap_cuda(U1, U2, U1p, U2p, Mr, Ml, W) -> torch.Tensor:
     """K6 on complex64 CUDA tensors: one launch, on the tensors' device."""
     B = U1.shape[0]

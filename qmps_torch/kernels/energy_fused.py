@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from . import _lib
 from .pallas_power import _dominant_eig_plain
 
@@ -149,6 +150,7 @@ def _aa_adjoint(G, A):
 # ---------------------------------------------------------------------------
 
 
+@_lib.launcher("energy_fwd")
 def _fwd_cuda(As, hs, iters):
     """K2: As (B,2,2,2), hs (B,4,4), both complex64 CUDA -> e, lam, v."""
     B = As.shape[0]
@@ -169,6 +171,7 @@ def _fwd_cuda(As, hs, iters):
     return e, lam, v
 
 
+@_lib.launcher("energy_bwd")
 def _bwd_cuda(As, hs, lam, v, ct):
     """K3: the forward's tensors and ct (B,) -> (Abar, hbar) complex64, JAX
     pairing convention."""
@@ -201,32 +204,34 @@ def _bwd_cuda(As, hs, lam, v, ct):
 class _EnergyObjective(torch.autograd.Function):
     @staticmethod
     def forward(ctx, As, hs, iters):
-        B = As.shape[0]
-        hb = hs.expand(B, 4, 4)  # a shared h is broadcast here and summed back
-        if As.device.type == "cpu":
-            e, lam, v = _fwd_plain(As, hb, iters)
-        else:
-            hb = hb.to(torch.complex64)
-            e, lam, v = _fwd_cuda(As, hb, iters)
-        ctx.save_for_backward(As, hb, lam, v)
-        ctx.h_shared = hs.dim() == 2
-        ctx.h_dtype = hs.dtype
-        return e
+        with span("energy.forward"):
+            B = As.shape[0]
+            hb = hs.expand(B, 4, 4)  # a shared h is broadcast here and summed back
+            if As.device.type == "cpu":
+                e, lam, v = _fwd_plain(As, hb, iters)
+            else:
+                hb = hb.to(torch.complex64)
+                e, lam, v = _fwd_cuda(As, hb, iters)
+            ctx.save_for_backward(As, hb, lam, v)
+            ctx.h_shared = hs.dim() == 2
+            ctx.h_dtype = hs.dtype
+            return e
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
-        As, hb, lam, v = ctx.saved_tensors
-        if As.device.type == "cpu":
-            Abar, hbar = _bwd_plain(As, hb, lam, v, ct)
-        else:
-            Abar, hbar = _bwd_cuda(As, hb, lam, v, ct)
-        # torch's .grad of a real loss is conj(jax.grad): conjugate the JAX
-        # pairing-convention cotangents; a real h takes the real part
-        if ctx.h_shared:
-            hbar = hbar.sum(0)
-        hbar = hbar.conj_physical() if ctx.h_dtype.is_complex else hbar.real
-        return Abar.conj_physical(), hbar.to(ctx.h_dtype), None
+        with span("energy.backward"):
+            As, hb, lam, v = ctx.saved_tensors
+            if As.device.type == "cpu":
+                Abar, hbar = _bwd_plain(As, hb, lam, v, ct)
+            else:
+                Abar, hbar = _bwd_cuda(As, hb, lam, v, ct)
+            # torch's .grad of a real loss is conj(jax.grad): conjugate the JAX
+            # pairing-convention cotangents; a real h takes the real part
+            if ctx.h_shared:
+                hbar = hbar.sum(0)
+            hbar = hbar.conj_physical() if ctx.h_dtype.is_complex else hbar.real
+            return Abar.conj_physical(), hbar.to(ctx.h_dtype), None
 
 
 def energy_objective_fused(As: torch.Tensor, hs: torch.Tensor, iters: int = 48) -> torch.Tensor:

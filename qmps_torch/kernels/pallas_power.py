@@ -144,6 +144,7 @@ def _matrix_power_plain(E: torch.Tensor, iters: int) -> torch.Tensor:
     return _squarings(_normalised(E), iters)
 
 
+@_lib.launcher("dominant_eig")
 def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str, left: bool = False):
     """Launch K1 on a (B, 4, 4) complex64 CUDA tensor -> (lam, v), and with
     ``left`` (squaring only) also w, the left eigenvector read off the same
@@ -170,26 +171,43 @@ def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str, left: bool = Fa
 def _matrix_power_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
     """Launch K7 (4 < N <= 16) or K8 (N > 16) on a (B, N, N) complex64 CUDA
     tensor -> the normalised power, (B, N, N) complex64."""
+    return (_matpow_small_cuda if E.shape[-1] <= MAX_SMALL_N else _matpow_large_cuda)(E, iters)
+
+
+def _matpow_operands(E: torch.Tensor):
+    """(E contiguous, the power's output) of a K7 or K8 launch."""
     _lib.require(E, "E", torch.complex64, (None, None, None))
     E = E.resolve_conj().contiguous()  # a lazy E^dag is materialised first
+    return E, torch.empty_like(E)
+
+
+@_lib.launcher("matpow_small")
+def _matpow_small_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
+    E, M = _matpow_operands(E)
     B, N = E.shape[0], E.shape[-1]
-    M = torch.empty_like(E)
     if B:
         stream = torch.cuda.current_stream(E.device).cuda_stream
         with torch.cuda.device(E.device):
-            if N <= MAX_SMALL_N:
-                name = "matpow_small"
-                rc = _lib.lib().qmps_matpow_small(E.data_ptr(), M.data_ptr(), B, N, iters, stream)
-            else:
-                name = "matpow_large"
-                work = (torch.empty(matpow_work_floats(B, N), dtype=torch.float32, device=E.device)
-                        if N > MAX_SHARED_N else None)
-                rc = _lib.lib().qmps_matpow_large(
-                    E.data_ptr(), M.data_ptr(), None if work is None else work.data_ptr(),
-                    B, N, iters, stream,
-                )
-        _lib.check(rc, name)
-        _lib.count(name)
+            rc = _lib.lib().qmps_matpow_small(E.data_ptr(), M.data_ptr(), B, N, iters, stream)
+        _lib.check(rc, "matpow_small")
+        _lib.count("matpow_small")
+    return M
+
+
+@_lib.launcher("matpow_large")
+def _matpow_large_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
+    E, M = _matpow_operands(E)
+    B, N = E.shape[0], E.shape[-1]
+    if B:
+        stream = torch.cuda.current_stream(E.device).cuda_stream
+        with torch.cuda.device(E.device):
+            work = (torch.empty(matpow_work_floats(B, N), dtype=torch.float32, device=E.device)
+                    if N > MAX_SHARED_N else None)
+            rc = _lib.lib().qmps_matpow_large(
+                E.data_ptr(), M.data_ptr(), None if work is None else work.data_ptr(), B, N, iters, stream,
+            )
+        _lib.check(rc, "matpow_large")
+        _lib.count("matpow_large")
     return M
 
 

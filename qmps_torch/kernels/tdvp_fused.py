@@ -94,6 +94,7 @@ def _w_operand(W, B):
     return W.contiguous(), 16
 
 
+@_lib.launcher("tdvp_fwd")
 def _fwd_cuda(As, Bs, W, iters, with_left):
     """K4: As, Bs (B,2,2,2), W (4,4) or (B,4,4), all complex64 CUDA ->
     lam, v and, with ``with_left``, w (else None)."""
@@ -117,6 +118,7 @@ def _fwd_cuda(As, Bs, W, iters, with_left):
     return lam, v, w
 
 
+@_lib.launcher("tdvp_bwd")
 def _bwd_cuda(As, Bs, W, lam, v, u, ct):
     """K5: the forward's tensors, the left vector u and ct (B,) ->
     (Abar, Bbar, per-element Wbar (B, 4, 4)) complex64, JAX pairing

@@ -37,6 +37,7 @@ from ..core.gates import complex_type
 from ..core.linalg import _trace
 from ..core.paulis import I2, X, Z
 from ..kernels.energy_fused import energy_objective_fused
+from ..utils.profiling import span
 from .mesh import in_shard, shard_over_sweep, shards_on_device
 
 
@@ -414,17 +415,18 @@ def sweep_ground_states_fused(
 
     Returns (energies (n,), As (n, 2, 2, 2) left-canonical tensors).
     """
-    device = resolve_device(device, gs)
-    _, rdtype = default_dtypes(device)
-    gs = torch.as_tensor(gs, dtype=rdtype, device=device)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    Bt = gs.shape[0] * restarts
-    xre = torch.randn((Bt, 4, 2), generator=generator, dtype=torch.float64)
-    xim = torch.randn((Bt, 4, 2), generator=generator, dtype=torch.float64)
-    xre, xim = xre.to(device, rdtype), xim.to(device, rdtype)
+    with span("sweep.job"):
+        device = resolve_device(device, gs)
+        _, rdtype = default_dtypes(device)
+        gs = torch.as_tensor(gs, dtype=rdtype, device=device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        Bt = gs.shape[0] * restarts
+        xre = torch.randn((Bt, 4, 2), generator=generator, dtype=torch.float64)
+        xim = torch.randn((Bt, 4, 2), generator=generator, dtype=torch.float64)
+        xre, xim = xre.to(device, rdtype), xim.to(device, rdtype)
 
-    return _fused_sweep_from(gs, xre, xim, steps, lr, momentum, restarts, iters, mesh)
+        return _fused_sweep_from(gs, xre, xim, steps, lr, momentum, restarts, iters, mesh)
 
 
 def _fused_sweep_from(gs, xre, xim, steps, lr, momentum, restarts, iters, mesh=None):
@@ -475,33 +477,36 @@ def _fused_sweep_programs(lr, momentum, restarts, iters):
 
     def init(gs, xre, xim):
         """(hs (B, 4, 4) real, V0 (B, 4, 2), M0 = 0) with B = n restarts."""
-        n = gs.shape[0]
-        hs = tfim_matrix(gs.to(xre))
-        hs = hs[:, None].expand(n, restarts, 4, 4).reshape(-1, 4, 4)
-        V0, _ = torch.linalg.qr(torch.complex(xre, xim))
-        return hs, V0, torch.zeros_like(V0)
+        with span("sweep.init"):
+            n = gs.shape[0]
+            hs = tfim_matrix(gs.to(xre))
+            hs = hs[:, None].expand(n, restarts, 4, 4).reshape(-1, 4, 4)
+            V0, _ = torch.linalg.qr(torch.complex(xre, xim))
+            return hs, V0, torch.zeros_like(V0)
 
     def advance(V, M, hs, length):
         """``length`` heavy-ball steps on (V, M)."""
         for _ in range(length):
-            with torch.enable_grad():
-                Vg = V.detach().requires_grad_()
-                # torch's .grad is already conj(jax.grad): sweep.py:559's
-                # G.conj() is not needed here
-                (G,) = torch.autograd.grad(loss(Vg, hs).sum(), Vg)
-            with torch.no_grad():
-                M = momentum * M + sym_proj(V, G)
-                V = polar(V - lr * M)
-                M = sym_proj(V, M)
+            with span("sweep.step"):
+                with torch.enable_grad():
+                    Vg = V.detach().requires_grad_()
+                    # torch's .grad is already conj(jax.grad): sweep.py:559's
+                    # G.conj() is not needed here
+                    (G,) = torch.autograd.grad(loss(Vg, hs).sum(), Vg)
+                with torch.no_grad():
+                    M = momentum * M + sym_proj(V, G)
+                    V = polar(V - lr * M)
+                    M = sym_proj(V, M)
         return V, M
 
     @torch.no_grad()
     def finish(V, hs):
         """Best of the restarts: (energies (n,), As (n, 2, 2, 2))."""
-        er = loss(V, hs).reshape(-1, restarts)
-        i = torch.argmin(er, dim=1)
-        Vbest = V.reshape(-1, restarts, 4, 2)[torch.arange(er.shape[0], device=V.device), i]
-        return er.min(dim=1).values, Vbest.reshape(-1, 2, 2, 2).transpose(1, 2).contiguous()
+        with span("sweep.finish"):
+            er = loss(V, hs).reshape(-1, restarts)
+            i = torch.argmin(er, dim=1)
+            Vbest = V.reshape(-1, restarts, 4, 2)[torch.arange(er.shape[0], device=V.device), i]
+            return er.min(dim=1).values, Vbest.reshape(-1, 2, 2, 2).transpose(1, 2).contiguous()
 
     return init, advance, finish
 

@@ -1,2 +1,2 @@
 from .checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
-from .logging import ConvergenceRecord, Timer  # noqa: F401
+from .logging import ConvergenceRecord  # noqa: F401

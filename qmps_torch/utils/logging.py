@@ -1,4 +1,4 @@
-"""Light observability: convergence records and wall-clock timers
+"""Light observability: convergence records and their plots
 (counterpart of ``qmps_tpu.utils.logging``; the reference printed and
 kept obj_fun_values lists, qmps/tools.py:235-246)."""
 from __future__ import annotations
@@ -51,14 +51,3 @@ def plot_convergence(record_or_values, path: str | None = None, title: str = "")
         return path
     return fig
 
-
-class Timer:
-    def __init__(self, name: str = ""):
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *a):
-        self.elapsed = time.perf_counter() - self.t0

@@ -774,3 +774,88 @@ def test_odeint_graph_replay_matches_the_cpu():
     assert (card - cpu).abs().max() < 1e-10
     one = odeint(lambda y, t: classical_rhs(y, t, 0.325), y0s[3:4].to(dev), ts.to(dev)).cpu()
     assert (one[:, 0] - card[:, 3]).abs().max() < 1e-12
+
+
+#: host calls that launch a kernel, as the profiler names them
+_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"}
+
+
+@pytest.mark.cuda
+def test_kernel_spans_hold_their_launch_on_the_profilers_clock():
+    """The program's spans and the profiler's host events share a clock:
+    in a profiled forward and backward of the energy objective (a
+    contiguous cotangent, so the wrappers copy nothing), each
+    ``kernel.energy_fwd`` and ``kernel.energy_bwd`` span holds exactly one
+    launch call of the trace, the one whose kernel is K2's or K3's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qmps_torch.kernels.energy_fused import energy_objective_fused
+    from qmps_torch.utils import profiling
+
+    dev = require_cuda()
+    B = 1000
+    A = torch.from_numpy(left_canonical(np.random.default_rng(3), B).astype(np.complex64)).to(dev)
+    h = torch.from_numpy(tfim_h(np.linspace(0.1, 2.0, B)).astype(np.complex64)).to(dev)
+    ct = torch.ones(B, device=dev)
+    energy_objective_fused(A, h)  # loads the library outside the profile
+    torch.cuda.synchronize()
+    profiling.drain_spans()
+    profiling.spans_on()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                Ag = A.clone().requires_grad_()
+                torch.autograd.grad(energy_objective_fused(Ag, h), Ag, grad_outputs=ct)
+            torch.cuda.synchronize()
+    finally:
+        profiling.spans_off()
+    spans = profiling.drain_spans()
+    events = list(prof.profiler.kineto_results.events())
+    kernels = {e.correlation_id(): e.name() for e in events if e.device_type() == DeviceType.CUDA}
+    launches = [(e.start_ns(), kernels.get(e.correlation_id(), "")) for e in events
+                if e.device_type() != DeviceType.CUDA and e.name() in _LAUNCH_CALLS]
+    for name in ("energy_fwd", "energy_bwd"):
+        ks = [s for s in spans if s.name == f"kernel.{name}"]
+        assert len(ks) == 3
+        for s in ks:
+            inside = [k for t, k in launches if s.start_ns <= t <= s.end_ns]
+            assert len(inside) == 1 and name in inside[0], (name, inside)
+        assert sum(1 for _, k in launches if name in k) == 3
+
+
+@pytest.mark.cuda
+def test_kernel_spans_match_the_launch_counter():
+    """Every hand kernel's wrapper records one ``kernel.<name>`` span a
+    launch: the spans of a short sweep (K2, K3), K1, K7 below and K8 above
+    N = 16, K4, K5 and K6 counted by name equal ``_lib.launches``."""
+    from qmps_torch.utils import profiling
+
+    dev = require_cuda()
+    rng = np.random.default_rng(5)
+    E4 = torch.from_numpy(transfer_matrices(100, seed=2).astype(np.complex64)).to(dev)
+    E9, E25 = (torch.from_numpy(((rng.standard_normal((50, n, n)) + 1j * rng.standard_normal((50, n, n)))
+                                 / n).astype(np.complex64)).to(dev) for n in (9, 25))
+    A, Bt, W = (t.to(dev, torch.complex64) for t in _tdvp_inputs(100, 7, True))
+    U = torch.linalg.qr(torch.randn(4, 100, 4, 4, dtype=torch.complex64, device=dev))[0]
+    M, W16 = U[0, :, :2, :2].contiguous(), torch.linalg.qr(torch.randn(16, 16, dtype=torch.complex64, device=dev))[0]
+    _lib.reset_launches()
+    profiling.drain_spans()
+    profiling.spans_on()
+    try:
+        sweep_ground_states_fused(torch.tensor([0.5, 1.5], device=dev), steps=5, restarts=2)
+        dominant_eig_batched(E4)
+        dominant_eig_batched(E9)
+        dominant_eig_batched(E25)
+        lam, v, w = tdf._fwd_cuda(A, Bt, W, 48, True)
+        tdf._bwd_cuda(A, Bt, W, lam, v, w, torch.ones(100, device=dev))
+        manifold_overlap_pallas(U[0], U[1], U[2], U[3], M, M.mH, W16)
+        torch.cuda.synchronize()
+    finally:
+        profiling.spans_off()
+    counted = {}
+    for s in profiling.drain_spans():
+        if s.name.startswith("kernel."):
+            counted[s.name[len("kernel."):]] = counted.get(s.name[len("kernel."):], 0) + 1
+    assert counted == {k: n for k, n in _lib.launches.items() if n}
+    assert set(counted) == set(_lib.launches)

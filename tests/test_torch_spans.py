@@ -1,0 +1,138 @@
+"""The program's spans (``qmps_torch.utils.profiling``): off by default and
+then recording nothing, the fused sweep's job, start, steps and pick with
+their parents and root, the energy objective and the kernel wrappers'
+spans, and the sweep's results bit for bit the same with spans on and off.
+"""
+import ast
+import pathlib
+import threading
+
+import pytest
+import torch
+
+from qmps_torch.kernels import _lib
+from qmps_torch.parallel import sweep_ground_states_fused
+from qmps_torch.utils import profiling
+
+KERNELS = pathlib.Path(__file__).resolve().parents[1] / "qmps_torch" / "kernels"
+
+
+@pytest.fixture
+def spans():
+    """Spans on for the test, off and drained after it."""
+    profiling.drain_spans()
+    profiling.spans_on()
+    try:
+        yield
+    finally:
+        profiling.spans_off()
+        profiling.drain_spans()
+
+
+def _sweep(steps=3):
+    return sweep_ground_states_fused(torch.tensor([0.4, 1.1], dtype=torch.float64), steps=steps, restarts=2,
+                                     generator=torch.Generator().manual_seed(7), iters=24)
+
+
+def test_spans_are_off_by_default_and_record_nothing():
+    assert not profiling._on
+    profiling.drain_spans()
+    _sweep()
+    assert profiling.drain_spans() == []
+    assert profiling.span("a") is profiling.span("b")  # one shared empty context
+
+
+def test_sweep_records_its_job_start_steps_and_pick(spans):
+    _sweep(steps=3)
+    got = profiling.drain_spans()
+    by_name = {}
+    for s in got:
+        by_name.setdefault(s.name, []).append(s)
+    assert {k: len(v) for k, v in by_name.items() if k.startswith("sweep.")} == {
+        "sweep.job": 1, "sweep.init": 1, "sweep.step": 3, "sweep.finish": 1}
+    (job,) = by_name["sweep.job"]
+    assert job.parent_id is None and job.root_id == job.id
+    assert all(s.root_id == job.id for s in got)  # one sweep, one request, one thread on the CPU
+    assert all(s.start_ns <= s.end_ns for s in got)
+    ids = {s.id: s for s in got}
+    for s in by_name["sweep.init"] + by_name["sweep.step"] + by_name["sweep.finish"]:
+        assert s.parent_id == job.id
+    # each step's forward and backward, and the pick's forward
+    assert len(by_name["energy.forward"]) == 4 and len(by_name["energy.backward"]) == 3
+    assert {ids[s.parent_id].name for s in by_name["energy.forward"]} == {"sweep.step", "sweep.finish"}
+    assert {ids[s.parent_id].name for s in by_name["energy.backward"]} == {"sweep.step"}
+    for s in got:  # a child lies inside its parent
+        if s.parent_id is not None:
+            p = ids[s.parent_id]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    steps = sorted(by_name["sweep.step"], key=lambda s: s.start_ns)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(steps, steps[1:]))
+    assert profiling.drain_spans() == []  # drained
+
+
+def test_results_are_bitwise_the_same_with_spans_on_and_off():
+    e0, A0 = _sweep(steps=4)
+    profiling.spans_on()
+    try:
+        e1, A1 = _sweep(steps=4)
+    finally:
+        profiling.spans_off()
+        profiling.drain_spans()
+    assert torch.equal(e0, e1) and torch.equal(A0, A1)
+
+
+def _worker():
+    with profiling.span("worker"):
+        pass
+
+
+def test_a_span_in_another_thread_is_a_root_of_its_own(spans):
+    with profiling.span("outer"):
+        t = threading.Thread(target=_worker)
+        t.start()
+        t.join(timeout=30)
+        with profiling.span("inner"):
+            pass
+    assert not t.is_alive()
+    got = {s.name: s for s in profiling.drain_spans()}
+    assert got["inner"].parent_id == got["outer"].id and got["inner"].root_id == got["outer"].id
+    assert got["worker"].parent_id is None and got["worker"].root_id == got["worker"].id
+    assert got["worker"].thread_id != got["outer"].thread_id == threading.get_native_id()
+
+
+def test_a_launcher_opens_the_kernel_span(spans):
+    calls = []
+
+    @_lib.launcher("energy_fwd")
+    def wrapper(x):
+        calls.append(x)
+        return 2 * x
+
+    with profiling.span("caller"):
+        assert wrapper(3) == 6
+    got = {s.name: s for s in profiling.drain_spans()}
+    assert calls == [3] and wrapper.__name__ == "wrapper"
+    assert got["kernel.energy_fwd"].parent_id == got["caller"].id
+
+
+def _calls(node, attr):
+    return [c for c in ast.walk(node) if isinstance(c, ast.Call) and isinstance(c.func, ast.Attribute)
+            and c.func.attr == attr and isinstance(c.func.value, ast.Name) and c.func.value.id == "_lib"]
+
+
+def test_every_launch_counter_sits_in_its_launchers_span():
+    """Each function that calls ``_lib.count(<name>)`` is decorated by
+    ``_lib.launcher(<name>)``: the span and the counter share one boundary,
+    for every key of ``_lib.launches``."""
+    counted = set()
+    for path in sorted(KERNELS.glob("*.py")):
+        for fn in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(fn, ast.FunctionDef):
+                continue
+            names = {c.args[0].value for c in _calls(fn, "count")}
+            if not names:
+                continue
+            spans = {c.args[0].value for d in fn.decorator_list for c in _calls(d, "launcher")}
+            assert names == spans, (path.name, fn.name, names, spans)
+            counted |= names
+    assert counted == set(_lib.launches)

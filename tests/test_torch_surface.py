@@ -38,6 +38,10 @@ ALLOWED = {
     ("utils.flops", "MXU_BF16"): "a TPU v5e unit's peak; the H100's are PEAK_F32, PEAK_TF32, HBM_BPS",
     ("utils.flops", "MXU_F32"): "a TPU v5e unit's peak; the H100's are PEAK_F32, PEAK_TF32, HBM_BPS",
     ("utils.flops", "VPU_F32"): "a TPU v5e unit's peak; the H100's are PEAK_F32, PEAK_TF32, HBM_BPS",
+    ("utils.profiling", "Throughput"): "a steps/s counter that nothing read; the port's host time per layer "
+                                       "is its spans (utils.profiling.span)",
+    ("utils.logging", "Timer"): "a wall-clock timer that nothing read; the port's spans time its layers",
+    ("utils", "Timer"): "utils.logging.Timer, re-exported; left out with it",
 }
 
 
@@ -178,4 +182,6 @@ def test_package_names_are_the_leaf_modules_objects(mod):
                 continue
             leaf = importlib.import_module(f"qmps_torch.{mod}.{node.module}")
             for a in node.names:
+                if (mod, a.name) in ALLOWED:  # left out of the port, with its reason
+                    continue
                 assert getattr(port, a.name) is getattr(leaf, a.name), (mod, a.name)

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 
 from qmps_torch import workloads as tw
-from qmps_torch.utils.profiling import Throughput, trace
+from qmps_torch.utils import profiling
+from qmps_torch.utils.profiling import trace
 from qmps_tpu import workloads as jw
 
 #: the JAX configs' fields that are TPU workarounds (the scan chunk)
@@ -78,12 +79,27 @@ def test_run_ladder_traces_each_config(tmp_path, monkeypatch):
 
 
 def test_trace_and_throughput():
+    """``trace`` writes a Chrome trace with the program's spans among its
+    events, on the file's own time base: each sweep step's span brackets the
+    ``aten::`` operations of its step; spans are off again after it."""
     with trace() as d:
         pass
     assert os.path.isfile(os.path.join(d, "trace.json"))
-    tp = Throughput("evals").start()
-    tp.tick(3)
-    assert tp.n == 3 and tp.rate() > 0 and tp.rate(result=(np.zeros(1),)) > 0
+    cfg = tw.FusedSweepConfig(n_points=2, steps=3, restarts=1, device="cpu")
+    with trace() as d:
+        cfg.sweep(cfg.grid())
+    assert not profiling._on and profiling.drain_spans() == []
+    with open(os.path.join(d, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "span"]
+    steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans if e["name"] == "sweep.step")
+    assert len(steps) == 3 and {e["name"] for e in spans} >= {"sweep.job", "sweep.init", "sweep.finish"}
+    ops = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"].startswith("aten::") and e.get("cat") != "span"]
+    for a, b in steps:
+        inside = [o for o in ops if a <= o[0] and o[1] <= b]
+        assert inside, (a, b)
+        # an operation that starts in a step ends in it: the spans share the trace's clock
+        assert all(o[1] <= b for o in ops if a <= o[0] < b)
 
 
 # -- tests/test_workloads.py, ported ----------------------------------------------
