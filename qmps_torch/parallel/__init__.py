@@ -5,4 +5,5 @@ from .sweep import (  # noqa: F401
     sweep_ground_states,
     sweep_ground_states_fused,
     sweep_ground_states_grown,
+    sweep_ground_states_stiefel,
 )

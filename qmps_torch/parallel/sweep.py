@@ -535,6 +535,51 @@ def stiefel_point_chunk(n: int, D: int, restarts: int, recycle_iters: int, dtype
     return max(1, min(n, int(free // 2 // shards_on_device() // per_point)))
 
 
+#: normalised squarings of the transfer matrix in the Stiefel sweep's
+#: readout: its power 2^40 takes a subdominant eigenvalue's share of the
+#: recycled environment below e^-1000 wherever |lam_2 / lam_1| < 1 - 1e-9
+READOUT_SQUARINGS = 40
+#: bytes of the (D^2, D^2) complex128 transfer matrices the readout squares at
+#: once (its squaring chain holds about three such blocks)
+READOUT_BLOCK_BYTES = 1 << 30
+
+
+@torch.no_grad()
+def _dominant_environment(V: torch.Tensor, r: torch.Tensor, D: int) -> torch.Tensor:
+    """Each row's environment r (B, D, D) projected onto the dominant
+    eigenspace of its transfer matrix E (E vec(x) = vec(sum_s A_s x A_s^dag),
+    A the tensor of the isometry V (B, 2D, D)): the normalised power
+    E^(2^READOUT_SQUARINGS) applied to r, by batched complex128 products
+    whatever the tensors' type, in blocks of ``READOUT_BLOCK_BYTES``.
+    Power matvecs converge as |lam_2 / lam_1|^k, which the descent drives
+    near 1 (near-degenerate spectra, e.g. cat-like states of the ordered
+    phase); squaring reaches the power in 40 products.  Each squaring's
+    rounding turns the power's dominant direction by about the rounding
+    over the gap 1 - |lam_2 / lam_1|, so the products run in float64: K8's
+    3xTF32 power mixed the two leading directions of some of the descent's
+    states, reading energies up to 1.6e-2 off on an H100.  The power
+    carries the phase of lam_1^(2^40), rounding's phase of lam_1 blown up,
+    so each result is rotated to a real positive trace; its scale is
+    arbitrary."""
+    from ..mps.transfer import transfer_dense
+    from ..optim.riemann import _tensor
+
+    def unit(M):
+        return M / torch.linalg.matrix_norm(M).clamp_min(1e-300)[:, None, None]
+
+    A = _tensor(V, D).to(torch.complex128)
+    block = max(1, READOUT_BLOCK_BYTES // (D ** 4 * 16))
+    out = []
+    for i in range(0, V.shape[0], block):
+        M = unit(transfer_dense(A[i:i + block], A[i:i + block]))
+        for _ in range(READOUT_SQUARINGS):
+            M = unit(M @ M)
+        out.append((M @ r[i:i + block].to(M.dtype).reshape(-1, D * D, 1)).reshape(-1, D, D).to(r.dtype))
+    x = torch.cat(out)
+    t = _trace(x)
+    return x * (t.conj() / t.abs().clamp_min(torch.finfo(t.real.dtype).tiny))[:, None, None]
+
+
 def _polar_ns(W: torch.Tensor, iters: int = 10) -> torch.Tensor:
     """Batched polar factor of (..., n, m) tall matrices by the coupled
     Newton-Schulz inverse-square-root iteration: batched m x m products
@@ -604,43 +649,50 @@ def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, r
     def init(gs, xre, xim, warm=None):
         """(hs (B, 4, 4) real, V0 (B, 2D, D), M0 = 0, r0 = I/sqrt(D)), B =
         n restarts, slot 0 of each point from ``warm`` where given."""
-        n = gs.shape[0]
-        hs = tfim_matrix(gs.to(xre))[:, None].expand(n, restarts, 4, 4).reshape(-1, 4, 4)
-        V0, _ = torch.linalg.qr(torch.complex(xre, xim))
-        if warm is not None:
-            V0 = V0.reshape(n, restarts, 2 * D, D)
-            V0 = torch.cat([warm.to(V0)[:, None], V0[:, 1:]], 1).reshape(-1, 2 * D, D)
-        r0 = torch.eye(D, dtype=V0.dtype, device=V0.device) / D ** 0.5
-        return hs, V0, torch.zeros_like(V0), r0.expand(V0.shape[0], D, D)
+        with span("stiefel.init"):
+            n = gs.shape[0]
+            hs = tfim_matrix(gs.to(xre))[:, None].expand(n, restarts, 4, 4).reshape(-1, 4, 4)
+            V0, _ = torch.linalg.qr(torch.complex(xre, xim))
+            if warm is not None:
+                V0 = V0.reshape(n, restarts, 2 * D, D)
+                V0 = torch.cat([warm.to(V0)[:, None], V0[:, 1:]], 1).reshape(-1, 2 * D, D)
+            r0 = torch.eye(D, dtype=V0.dtype, device=V0.device) / D ** 0.5
+            return hs, V0, torch.zeros_like(V0), r0.expand(V0.shape[0], D, D)
 
     def advance(V, M, r, hs, length):
         """``length`` heavy-ball steps on (V, M, r)."""
         for _ in range(length):
-            with torch.enable_grad():
-                Vg = V.detach().requires_grad_()
-                es, r_new = loss(Vg, r, hs, recycle_iters)
-                # points are independent: the gradient of the sum is every
-                # point's gradient, and torch's .grad is already
-                # conj(jax.grad), so sweep.py:696's G.conj() goes
-                (G,) = torch.autograd.grad(es.sum(), Vg)
-            with torch.no_grad():
-                M = momentum * M + _project_tangent(V, G)
-                V = _polar_ns(V - lr * M)
-                M = _project_tangent(V, M)
-            r = r_new.detach()
+            with span("stiefel.step"):
+                with torch.enable_grad():
+                    Vg = V.detach().requires_grad_()
+                    with span("stiefel.energy"):
+                        es, r_new = loss(Vg, r, hs, recycle_iters)
+                    # points are independent: the gradient of the sum is every
+                    # point's gradient, and torch's .grad is already
+                    # conj(jax.grad), so sweep.py:696's G.conj() goes
+                    with span("stiefel.backward"):
+                        (G,) = torch.autograd.grad(es.sum(), Vg)
+                with torch.no_grad(), span("stiefel.retract"):
+                    M = momentum * M + _project_tangent(V, G)
+                    V = _polar_ns(V - lr * M)
+                    M = _project_tangent(V, M)
+                r = r_new.detach()
         return V, M, r
 
     @torch.no_grad()
     def finish(V, r, hs):
-        """Best of the restarts after a ``final_iters`` refinement:
-        (energies (n,), As (n, 2, D, D), rs (n, D, D))."""
-        es, r = loss(V, r, hs, final_iters)
-        er = es.reshape(-1, restarts)
-        i = torch.argmin(er, dim=1)
-        rows = torch.arange(er.shape[0], device=V.device)
-        Vb = V.reshape(-1, restarts, 2 * D, D)[rows, i]
-        rb = r.reshape(-1, restarts, D, D)[rows, i]
-        return er.min(dim=1).values, Vb.reshape(-1, D, 2, D).transpose(1, 2).contiguous(), rb
+        """Best of the restarts, each row's energy read from its environment
+        projected onto the dominant eigenspace (``_dominant_environment``)
+        and refined by ``final_iters`` power matvecs: (energies (n,), As
+        (n, 2, D, D), rs (n, D, D))."""
+        with span("stiefel.finish"):
+            es, r = loss(V, _dominant_environment(V, r, D), hs, final_iters)
+            er = es.reshape(-1, restarts)
+            i = torch.argmin(er, dim=1)
+            rows = torch.arange(er.shape[0], device=V.device)
+            Vb = V.reshape(-1, restarts, 2 * D, D)[rows, i]
+            rb = r.reshape(-1, restarts, D, D)[rows, i]
+            return er.min(dim=1).values, Vb.reshape(-1, D, 2, D).transpose(1, 2).contiguous(), rb
 
     return init, advance, finish
 
@@ -686,12 +738,19 @@ def sweep_ground_states_stiefel(gs, D: int, steps: int = 300, lr: float = 0.08, 
     correctness knob: the descent follows the iters-refined energy, and an
     environment that cannot keep up with the state's transfer gap lets it
     exploit the unconverged readout (energies below the ground state).
+    The returned energies are read from each state's dominant right
+    environment: the carried one projected onto the transfer matrix's
+    dominant eigenspace by its normalised power E^(2^40)
+    (``_dominant_environment``, in complex128), then ``final_iters`` power
+    matvecs.  A
+    readout of matvecs alone can stop short where the descent has made the
+    spectrum near-degenerate.
 
     ``precision`` / ``polish_steps``: the QR of the starts and the first
     ``steps - polish_steps`` steps run at ``precision`` (``_matmul_tier``:
     "default" is one-pass TF32 on the card; "high", "highest" and None full
     float32), the last ``polish_steps`` (clamped to [0, steps]) and the
-    final ``final_iters`` readout always at full float32.  The tier is set
+    final readout always at full float32.  The tier is set
     once, in the caller's thread, around every shard of the first phase,
     and the package's full-float32 pin is back when the sweep returns.
 
@@ -731,7 +790,16 @@ def _stiefel_sweep_from(gs, xre, xim, warm_V, D, steps, lr, momentum, restarts, 
     under ``_matmul_tier(precision)``, entered here in the caller's thread
     once for every shard (the tier is process-wide state), then the
     ``polish`` steps and ``finish`` at full float32 on the state (V, M, r,
-    hs) the first call leaves."""
+    hs) the first call leaves.
+
+    Spans (``utils/profiling.span``, off by default): ``stiefel.job``
+    around both calls, and ``stiefel.chunk`` around each chunk in each
+    call, so a chunk of points opens two (its descent; its polish steps
+    and ``finish``).  Inside them the programs' own: ``stiefel.init``,
+    ``stiefel.step`` (holding ``stiefel.energy``, the warm-environment
+    forward; ``stiefel.backward``, the ``autograd.grad`` call;
+    ``stiefel.retract``, the projections and the polar factor) and
+    ``stiefel.finish``.  A shard's spans are roots of their own thread."""
     cdtype, rdtype = default_dtypes(gs.device, gs)
     init, advance, finish = _stiefel_sweep_programs(D, lr, momentum, restarts, recycle_iters, final_iters)
 
@@ -745,12 +813,13 @@ def _stiefel_sweep_from(gs, xre, xim, warm_V, D, steps, lr, momentum, restarts, 
         dev, chunk = gs_b.device, chunk_of(gs_b)
         outs = []
         for i in range(0, gs_b.shape[0], chunk):
-            sl = slice(i, i + chunk)
-            m = gs_b[sl].shape[0]
-            warm = None if warm_b is None else warm_b[sl].to(dev, cdtype)
-            hs, V, M, r = init(gs_b[sl], *(x[sl].reshape(m * restarts, 2 * D, D).to(dev, rdtype)
-                                           for x in (xre_b, xim_b)), warm)
-            outs.append((*advance(V, M, r, hs, steps - polish), hs))
+            with span("stiefel.chunk"):
+                sl = slice(i, i + chunk)
+                m = gs_b[sl].shape[0]
+                warm = None if warm_b is None else warm_b[sl].to(dev, cdtype)
+                hs, V, M, r = init(gs_b[sl], *(x[sl].reshape(m * restarts, 2 * D, D).to(dev, rdtype)
+                                               for x in (xre_b, xim_b)), warm)
+                outs.append((*advance(V, M, r, hs, steps - polish), hs))
         return tuple(torch.cat([o[j] for o in outs]) for j in range(4))
 
     def polish_and_finish(gs_b, V, M, r, hs):
@@ -758,14 +827,16 @@ def _stiefel_sweep_from(gs, xre, xim, warm_V, D, steps, lr, momentum, restarts, 
         chunk = chunk_of(gs_b) * restarts
         outs = []
         for i in range(0, V.shape[0], chunk):
-            sl = slice(i, i + chunk)
-            Vc, _, rc = advance(V[sl], M[sl], r[sl], hs[sl], polish)
-            outs.append(finish(Vc, rc, hs[sl]))
+            with span("stiefel.chunk"):
+                sl = slice(i, i + chunk)
+                Vc, _, rc = advance(V[sl], M[sl], r[sl], hs[sl], polish)
+                outs.append(finish(Vc, rc, hs[sl]))
         return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
 
-    with _matmul_tier(precision):
-        state = shard_over_sweep(descend, mesh)(gs, xre, xim, warm_V)
-    return shard_over_sweep(polish_and_finish, mesh)(gs, *state)
+    with span("stiefel.job"):
+        with _matmul_tier(precision):
+            state = shard_over_sweep(descend, mesh)(gs, xre, xim, warm_V)
+        return shard_over_sweep(polish_and_finish, mesh)(gs, *state)
 
 
 @torch.no_grad()

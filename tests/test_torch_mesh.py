@@ -191,7 +191,10 @@ def test_stiefel_sweep_sharded_matches_jax_sharded():
     """The Stiefel sweep's body sharded over 8 cpu entries against the JAX
     package's programs sharded over its 8 virtual devices, from the same
     numpy normals (D = 4, 8 points x 2 restarts, 80 steps): energies, As
-    and environments to 1e-9 (test_stiefel_sweep.py's mesh tolerance)."""
+    and environments to 1e-9 (test_stiefel_sweep.py's mesh tolerance).
+    The port's readout projects the carried environment onto the dominant
+    eigenspace before JAX's 200 matvecs (``sweep._dominant_environment``):
+    the same fixed point here, where the matvecs converge."""
     D, R, n, steps = 4, 2, 8, 80
     rng = np.random.default_rng(5)
     gs = np.linspace(0.4, 1.6, n)
@@ -261,7 +264,9 @@ def test_stiefel_two_phase_sharded_matches_jax_sharded():
     package's programs on its 8 virtual devices from the same numpy
     normals: make_advance(steps - polish, "default"), then
     make_advance(polish), then finish (D = 4, 8 points x 2 restarts, 60
-    steps, 20 of them polish): energies, As and environments to 1e-9."""
+    steps, 20 of them polish): energies, As and environments to 1e-9.
+    The readout departs from JAX's as in
+    ``test_stiefel_sweep_sharded_matches_jax_sharded``."""
     D, R, n, steps, polish = 4, 2, 8, 60, 20
     rng = np.random.default_rng(6)
     gs = np.linspace(0.4, 1.6, n)

@@ -1,7 +1,9 @@
 """The program's spans (``qmps_torch.utils.profiling``): off by default and
 then recording nothing, the fused sweep's job, start, steps and pick with
 their parents and root, the energy objective and the kernel wrappers'
-spans, and the sweep's results bit for bit the same with spans on and off.
+spans, the Stiefel sweep's job, chunks, start, steps (with their energy,
+backward and retraction) and pick, and both sweeps' results bit for bit
+the same with spans on and off.
 """
 import ast
 import pathlib
@@ -11,7 +13,7 @@ import pytest
 import torch
 
 from qmps_torch.kernels import _lib
-from qmps_torch.parallel import sweep_ground_states_fused
+from qmps_torch.parallel import sweep_ground_states_fused, sweep_ground_states_stiefel
 from qmps_torch.utils import profiling
 
 KERNELS = pathlib.Path(__file__).resolve().parents[1] / "qmps_torch" / "kernels"
@@ -79,6 +81,62 @@ def test_results_are_bitwise_the_same_with_spans_on_and_off():
         profiling.spans_off()
         profiling.drain_spans()
     assert torch.equal(e0, e1) and torch.equal(A0, A1)
+
+
+def _stiefel(steps=3, point_chunk=2):
+    return sweep_ground_states_stiefel(torch.tensor([0.4, 0.9, 1.1, 1.6], dtype=torch.float64), D=4, steps=steps,
+                                       generator=torch.Generator().manual_seed(7), recycle_iters=4, final_iters=10,
+                                       point_chunk=point_chunk)
+
+
+def test_stiefel_spans_are_off_by_default_and_results_are_bitwise_the_same():
+    assert not profiling._on
+    profiling.drain_spans()
+    out0 = _stiefel()
+    assert profiling.drain_spans() == []
+    profiling.spans_on()
+    try:
+        out1 = _stiefel()
+    finally:
+        profiling.spans_off()
+        profiling.drain_spans()
+    assert all(torch.equal(a, b) for a, b in zip(out0, out1))
+
+
+def test_stiefel_sweep_records_its_job_chunks_start_steps_and_pick(spans):
+    """Two chunks of two points, 3 steps: the job; a chunk span for each
+    chunk in each of the sweep's two calls (the descent; the polish steps,
+    none here, and the pick); one start a chunk; one step a step a chunk,
+    each holding its energy, backward and retraction; one pick a chunk."""
+    _stiefel(steps=3, point_chunk=2)
+    got = profiling.drain_spans()
+    ids = {s.id: s for s in got}
+    by_name = {}
+    for s in got:
+        by_name.setdefault(s.name, []).append(s)
+    assert {k: len(v) for k, v in by_name.items()} == {
+        "stiefel.job": 1, "stiefel.chunk": 4, "stiefel.init": 2, "stiefel.step": 6, "stiefel.energy": 6,
+        "stiefel.backward": 6, "stiefel.retract": 6, "stiefel.finish": 2}
+    (job,) = by_name["stiefel.job"]
+    assert job.parent_id is None and all(s.root_id == job.id for s in got)
+    parent = {name: {ids[s.parent_id].name for s in by_name[name]} for name in by_name if name != "stiefel.job"}
+    assert parent == {"stiefel.chunk": {"stiefel.job"}, "stiefel.init": {"stiefel.chunk"},
+                      "stiefel.step": {"stiefel.chunk"}, "stiefel.finish": {"stiefel.chunk"},
+                      "stiefel.energy": {"stiefel.step"}, "stiefel.backward": {"stiefel.step"},
+                      "stiefel.retract": {"stiefel.step"}}
+    chunks = sorted(by_name["stiefel.chunk"], key=lambda s: s.start_ns)
+    for c, (n_init, n_steps, n_finish) in zip(chunks, [(1, 3, 0), (1, 3, 0), (0, 0, 1), (0, 0, 1)]):
+        kids = [s.name for s in got if s.parent_id == c.id]
+        assert (kids.count("stiefel.init"), kids.count("stiefel.step"), kids.count("stiefel.finish")) == \
+            (n_init, n_steps, n_finish)
+    for s in got:  # a child lies inside its parent
+        if s.parent_id is not None:
+            p = ids[s.parent_id]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    for step in by_name["stiefel.step"]:  # energy, then backward, then retraction
+        kids = sorted((s for s in got if s.parent_id == step.id), key=lambda s: s.start_ns)
+        assert [s.name for s in kids] == ["stiefel.energy", "stiefel.backward", "stiefel.retract"]
+        assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
 
 
 def _worker():

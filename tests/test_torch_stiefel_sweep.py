@@ -11,6 +11,7 @@ import torch
 from _torch_parity import to_np
 from qmps_torch.ham.exact import tfim_gs_energy_f64
 from qmps_torch.mps.imps import iMPS
+from qmps_torch.mps.transfer import transfer_dense
 from qmps_torch.optim.riemann import isometry_energy_warm
 from qmps_torch.parallel import sweep as tsw
 from qmps_tpu.parallel import sweep as jsw
@@ -37,7 +38,12 @@ def test_polar_ns_matches_svd_polar():
 def test_programs_match_jax_from_the_same_normals():
     """init / advance / finish from the same numpy normals, D = 4, 4 points
     x 2 restarts, 40 steps: V, M, r, the energies, As and rs equal JAX's
-    to 1e-10 (reached: ~1e-13)."""
+    to 1e-10 (reached: ~1e-13).  The port's ``finish`` departs from JAX's
+    fixed-count readout (200 matvecs from the carried environment): it
+    projects that environment onto the dominant eigenspace first
+    (``sweep._dominant_environment``).  Both reach the same fixed point
+    here, where the matvecs converge; they part where the transfer
+    spectrum is near-degenerate (``test_unconverged_readout_can_read_below_exact``)."""
     D, R, n, steps = 4, 2, 4, 40
     rng = np.random.default_rng(3)
     gs = np.linspace(0.5, 1.5, n)
@@ -184,31 +190,40 @@ def test_point_chunk_rule_counts_the_saved_tensors():
 
 
 def test_unconverged_readout_can_read_below_exact():
-    """The sweep's energies are a fixed-count warm power readout
-    (recycle_iters in the descent, final_iters at the end), and a descent
-    that follows an unconverged readout reaches states whose transfer
-    spectrum is near-degenerate (|lam_2/lam_1| > 0.9998 here), where that
-    readout can lie below the exact energy: the method's, in float64 as in
-    float32 (ROADMAP.md section 3; chip_smoke.py phase 14 saw two of 1,024
-    D = 32 points up to 4.19e-4 below exact on the card).  At D = 8,
-    recycle_iters 4, final_iters 8, the g = 1 point reads 6.2e-3 below
-    exact; a 2,000-iteration readout and the host float64 readout of the
-    same state lie above it."""
-    from qmps_torch.mps.transfer import transfer_dense
+    """A fixed-count warm power readout (recycle_iters in the descent, a few
+    matvecs at the end) can lie below the exact energy: a descent that
+    follows an unconverged readout reaches states whose transfer spectrum
+    is near-degenerate (|lam_2/lam_1| > 0.9998 here), where matvecs from
+    the carried environment converge too slowly (chip_smoke.py phase 14
+    saw two of 1,024 D = 32 points up to 4.19e-4 below exact on the card).
+    At D = 8, recycle_iters 4, the g = 1 point's readout of 8 matvecs reads
+    more than 1e-3 below exact; a 2,000-iteration readout and the host
+    float64 readout of the same state lie above it.  The sweep's own
+    readout (``finish``: the carried environment projected onto the
+    dominant eigenspace, then the matvecs) lies above exact and equals the
+    host float64 readout to 1e-10."""
     from qmps_torch.utils.host_eval import host_f64_sweep_energies, tfim_h64_batch
 
-    gs = torch.tensor([0.97, 0.99, 1.0, 1.01, 1.03], dtype=torch.float64)
-    es, As, rs = tsw.sweep_ground_states_stiefel(gs, D=8, steps=200, recycle_iters=4, final_iters=8)
-    exact = tfim_gs_energy_f64(to_np(gs))
-    i = int(np.argmin(to_np(es) - exact))
-    assert to_np(es)[i] - exact[i] < -1e-3
-    A = As[i]
-    mods = np.sort(np.abs(np.linalg.eigvals(to_np(transfer_dense(A, A)))))
+    D, gv = 8, np.array([0.97, 0.99, 1.0, 1.01, 1.03])
+    gs = torch.from_numpy(gv)
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=torch.Generator().manual_seed(0)))
+    xre, xim = (x.reshape(5, 2 * D, D) for x in tsw._nested_restart_normals(seed, 1, (5, 2 * D, D)))
+    init, advance, finish = tsw._stiefel_sweep_programs(D, 0.08, 0.9, 1, 4, 8)
+    hs, V, M, r = init(gs, xre, xim)
+    V, _, r = advance(V, M, r, hs, 200)
+    fixed = to_np(isometry_energy_warm(V, hs, D, r, 8, "unroll")[0])
+    exact = tfim_gs_energy_f64(gv)
+    i = int(np.argmin(fixed - exact))
+    assert fixed[i] - exact[i] < -1e-3
+    es, As, rs = finish(V, r, hs)
+    assert torch.equal(As, V.reshape(-1, D, 2, D).transpose(1, 2))
+    mods = np.sort(np.abs(np.linalg.eigvals(to_np(transfer_dense(As[i], As[i])))))
     assert mods[-2] / mods[-1] > 0.9998
-    V = As.transpose(1, 2).reshape(-1, 16, 8)
-    deep = to_np(isometry_energy_warm(V, tsw.tfim_matrix(gs), 8, rs, 2000, "unroll")[0])
-    e64 = host_f64_sweep_energies(to_np(As), to_np(rs), tfim_h64_batch(to_np(gs)))[0]
+    deep = to_np(isometry_energy_warm(V, hs, D, r, 2000, "unroll")[0])
+    e64 = host_f64_sweep_energies(to_np(As), to_np(rs), tfim_h64_batch(gv))[0]
     assert deep[i] > exact[i] and np.all(e64 > exact)
+    assert np.all(to_np(es) > exact)
+    np.testing.assert_allclose(to_np(es), e64, rtol=0, atol=1e-10)
 
 
 @pytest.mark.slow
