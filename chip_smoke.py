@@ -203,7 +203,8 @@ Phases (any failure exits non-zero, and nothing is caught):
      full-float32 pin (precision "highest", allow_tf32 False) after each
      call, and every shard's first steps under the tier and its polish
      steps at full float32 (each retraction's precision recorded with its
-     thread); (d) the wall times of each, not gated, with the card count.
+     thread; unsharded, each phase's warm-ups and capture); (d) the wall
+     times of each, not gated, with the card count.
 Each kernel's entry in the JSON line has its bound: the larger of its
 operations over the card's peak for their type and its bytes (each input
 read once, each output written once) over 3.35 TB/s, the published H100
@@ -2068,7 +2069,9 @@ def stiefel_tier_sharded(dev, card, meshes, pool):
     allow_tf32 False), and every step of every shard ran at the tier its
     phase sets: each retraction's precision is recorded with its thread
     (the first steps of both shards under the caller's tier, then the
-    polish steps of both at full float32).  Sharded and unsharded float32
+    polish steps of both at full float32).  Unsharded on the card each phase
+    is one CUDA graph: its two eager warm-ups and its capture record the
+    retractions that its replays repeat.  Sharded and unsharded float32
     energies are printed, not gated: cuBLAS may take other TF32 algorithms
     for a shard's half of the batch.  No hand kernel."""
     import threading
@@ -2098,7 +2101,10 @@ def stiefel_tier_sharded(dev, card, meshes, pool):
             pin = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
             n = 1 if mesh is None else len(mesh)
             threads = n if dev.type == "cuda" else 1  # the CPU's shards run in the caller's thread
-            low, tail = seen[:n * (steps - polish)], seen[n * (steps - polish):]
+            # retractions run in Python a shard: each step's, or a graphed phase's warm-ups and capture
+            graphed = dev.type == "cuda" and mesh is None
+            first, last = (min(k, 3) if graphed else k for k in (steps - polish, polish))
+            low, tail = seen[:n * first], seen[n * first:]
             per_thread = [sorted({t for t, _ in part}) for part in (low, tail)]
             t0 = time.perf_counter()
             err = readout_f64(As, rs, gvals, pool, parts=SHARD_STF_WORKERS) - exact
@@ -2113,7 +2119,7 @@ def stiefel_tier_sharded(dev, card, meshes, pool):
             require(es.shape == (SHARD_STF_POINTS,) and As.shape == (SHARD_STF_POINTS, 2, SHARD_STF_D, SHARD_STF_D)
                     and np.all(np.isfinite(err)), f"phase 19 Stiefel {tag}: finite output of the expected shapes")
             require(pin == ("highest", False), f"phase 19 Stiefel {tag}: the full-float32 pin after the call {pin}")
-            require(len(seen) == n * steps and all(p == "high" for _, p in low)
+            require(len(seen) == n * (first + last) and all(p == "high" for _, p in low)
                     and all(p == "highest" for _, p in tail) and all(len(t) == threads for t in per_thread),
                     f"phase 19 Stiefel {tag}: each shard's first steps under the tier, its polish at full float32")
             require(not any(_lib.launches.values()), f"phase 19 Stiefel {tag}: no hand kernel {dict(_lib.launches)}")

@@ -27,6 +27,8 @@ through it.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Callable
 
@@ -177,17 +179,31 @@ def odeint(func: Callable, y0, t, rtol: float = 1.4e-8, atol: float = 1.4e-8, mx
     return torch.stack(out)
 
 
-def _graphed(fn: Callable) -> Callable:
+@functools.cache
+def _capture_stream(device: int) -> torch.cuda.Stream:
+    """The side stream of every capture on card ``device``, its warm-ups'
+    too.  cuBLAS keeps a 32 MiB workspace for each stream and handle it
+    has run on, for the life of the process: a new stream for each capture
+    left two more behind every time (64 MiB for a D = 16 descent)."""
+    return torch.cuda.Stream(device)
+
+
+def _graphed(fn: Callable, warm: Callable | None = None, capture=contextlib.nullcontext) -> Callable:
     """``fn`` (which only rewrites tensors in place) run twice on a side
-    stream, as capture requires, then captured as a CUDA graph: returns its
-    replay."""
-    side = torch.cuda.Stream()
+    stream, as capture requires, then captured there as a CUDA graph:
+    returns its replay.  ``warm`` (``fn`` if None) is called for each
+    warm-up, a caller's wrapper of ``fn`` that counts them; the capture runs
+    inside ``capture()``.  ``torch.cuda.graph`` empties the allocator's
+    cache before it captures, so the graph's pool takes the room the
+    warm-ups left."""
+    warm = warm or fn
+    side = _capture_stream(torch.cuda.current_device())
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
-        fn()
+        warm()
+        warm()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(), torch.cuda.graph(graph, stream=side):
         fn()
     return graph.replay

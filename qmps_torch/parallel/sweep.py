@@ -35,6 +35,7 @@ import torch
 from ..config import default_dtypes, resolve_device
 from ..core.gates import complex_type
 from ..core.linalg import _trace
+from ..core.ode import _graphed
 from ..core.paulis import I2, X, Z
 from ..kernels.energy_fused import energy_objective_fused
 from ..utils.profiling import span
@@ -659,25 +660,52 @@ def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, r
             r0 = torch.eye(D, dtype=V0.dtype, device=V0.device) / D ** 0.5
             return hs, V0, torch.zeros_like(V0), r0.expand(V0.shape[0], D, D)
 
+    def step(V, M, r, hs):
+        """One heavy-ball step: the new (V, M, r)."""
+        with torch.enable_grad():
+            Vg = V.detach().requires_grad_()
+            with span("stiefel.energy"):
+                es, r_new = loss(Vg, r, hs, recycle_iters)
+            # points are independent: the gradient of the sum is every
+            # point's gradient, and torch's .grad is already
+            # conj(jax.grad), so sweep.py:696's G.conj() goes
+            with span("stiefel.backward"):
+                (G,) = torch.autograd.grad(es.sum(), Vg)
+        with torch.no_grad(), span("stiefel.retract"):
+            M = momentum * M + _project_tangent(V, G)
+            V = _polar_ns(V - lr * M)
+            M = _project_tangent(V, M)
+        return V, M, r_new.detach()
+
     def advance(V, M, r, hs, length):
-        """``length`` heavy-ball steps on (V, M, r)."""
-        for _ in range(length):
+        """``length`` heavy-ball steps on (V, M, r).  On a card, outside a
+        shard (whose thread would capture the other shards' work too), a
+        descent of three steps or more is one CUDA graph of the step: its
+        first two steps are the capture's eager warm-ups, each later step a
+        replay, the same kernels in the same order.  The graph is captured
+        under the matmul tier in force at the call and dropped on return."""
+        if V.device.type != "cuda" or in_shard() or length < 3:
+            for _ in range(length):
+                with span("stiefel.step"):
+                    V, M, r = step(V, M, r, hs)
+            return V, M, r
+        # the graph's own copies, rewritten in place (r0 is an expand, which cannot be)
+        state = tuple(x.clone(memory_format=torch.contiguous_format) for x in (V, M, r))
+
+        def in_place():
+            for x, new in zip(state, step(*state, hs)):
+                x.copy_(new)
+
+        def warm():
             with span("stiefel.step"):
-                with torch.enable_grad():
-                    Vg = V.detach().requires_grad_()
-                    with span("stiefel.energy"):
-                        es, r_new = loss(Vg, r, hs, recycle_iters)
-                    # points are independent: the gradient of the sum is every
-                    # point's gradient, and torch's .grad is already
-                    # conj(jax.grad), so sweep.py:696's G.conj() goes
-                    with span("stiefel.backward"):
-                        (G,) = torch.autograd.grad(es.sum(), Vg)
-                with torch.no_grad(), span("stiefel.retract"):
-                    M = momentum * M + _project_tangent(V, G)
-                    V = _polar_ns(V - lr * M)
-                    M = _project_tangent(V, M)
-                r = r_new.detach()
-        return V, M, r
+                in_place()
+
+        with torch.cuda.device(V.device):
+            replay = _graphed(in_place, warm, lambda: span("stiefel.capture"))
+            for _ in range(length - 2):
+                with span("stiefel.step"), span("stiefel.replay"):
+                    replay()
+        return state
 
     @torch.no_grad()
     def finish(V, r, hs):
@@ -799,7 +827,10 @@ def _stiefel_sweep_from(gs, xre, xim, warm_V, D, steps, lr, momentum, restarts, 
     ``stiefel.step`` (holding ``stiefel.energy``, the warm-environment
     forward; ``stiefel.backward``, the ``autograd.grad`` call;
     ``stiefel.retract``, the projections and the polar factor) and
-    ``stiefel.finish``.  A shard's spans are roots of their own thread."""
+    ``stiefel.finish``.  A descent taken as a CUDA graph (``advance``) opens
+    ``stiefel.capture`` around the capture, which holds the three step spans
+    but is no step, and ``stiefel.replay`` inside each replayed step, which
+    holds none.  A shard's spans are roots of their own thread."""
     cdtype, rdtype = default_dtypes(gs.device, gs)
     init, advance, finish = _stiefel_sweep_programs(D, lr, momentum, restarts, recycle_iters, final_iters)
 

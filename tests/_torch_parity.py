@@ -125,3 +125,25 @@ def dispatched(fn) -> int:
     with Count():
         fn()
     return Count.n
+
+
+def stiefel_advance_span_counts(dev: torch.device, steps: int) -> dict:
+    """The spans, by name and count, that one ``advance`` of the Stiefel
+    sweep's programs opens: ``steps`` steps at D = 4 on 8 rows on ``dev``,
+    spans on for the call only."""
+    from qmps_torch.parallel.sweep import _stiefel_sweep_programs
+    from qmps_torch.utils import profiling
+
+    init, advance, _ = _stiefel_sweep_programs(4, 0.08, 0.9, 1, 4, 10)
+    gen = torch.Generator().manual_seed(11)
+    hs, V, M, r = init(torch.linspace(0.3, 1.7, 8, device=dev),
+                       *(torch.randn((8, 8, 4), generator=gen).to(dev) for _ in range(2)))
+    profiling.drain_spans()
+    profiling.spans_on()
+    try:
+        advance(V, M, r, hs, steps)
+        names = [s.name for s in profiling.drain_spans()]
+    finally:
+        profiling.spans_off()
+        profiling.drain_spans()
+    return {n: names.count(n) for n in set(names)}

@@ -1,7 +1,8 @@
 """The benchmark's large-D configuration on the CPU: the plain reference of
 the Stiefel sweep (``port_bench/reference_stiefel.py``) against the
 program and against dense ``eig``, its job driver at a toy cell with
-planted faults, the work count behind ``roofline_pct.stiefel_job``, and a
+planted faults, the work count behind ``roofline_pct.stiefel_job``, the
+reader of ``span_replay_pct.stiefel_step`` on synthetic spans, and a
 whole run of the toy cell through the harness in a process without JAX.
 """
 from __future__ import annotations
@@ -189,6 +190,26 @@ def test_work_count_cross_checks_the_jax_packages_audit():
     assert flops == 1024 * (300 * stiefel_work.step_flops(16, 96) + readout)
     assert 0.25 < 1024 * readout / flops < 0.35
     assert nbytes < 1e-6 * flops  # bound by the operations
+
+
+@pytest.mark.parametrize("steps,replays,want", [(300, 298, 99.33), (300, 0, None), (0, 0, None)])
+def test_replay_share_reader_on_synthetic_spans(steps, replays, want):
+    """``span_replay_pct.stiefel_step`` on a synthetic spans-on job: 100 x
+    the ``stiefel.replay`` spans over the ``stiefel.step`` spans (298 of
+    300: 99.33); None with no replay (a program that never captures the
+    step, as before the graph) or no step; None without spans at all."""
+    from port_bench.harness import Run
+    from qmps_torch.utils.profiling import Span
+
+    reader = load_module(REPO / "port_bench" / "metrics" / "span_replay_pct.stiefel_step.py", "replay_pct_reader")
+    sp = [Span(i, None, i, "stiefel.step", i, i + 1, 1) for i in range(steps)]
+    sp += [Span(steps + i, i, i, "stiefel.replay", i, i + 1, 1) for i in range(replays)]
+    run = Run(None, torch.device("cuda"))
+    run.spans, run.traced_spans, run.span_trace = sp, sp, None
+    got = reader.read(run)
+    assert got == (None if want is None else pytest.approx(want, abs=5e-3))
+    run.spans = None
+    assert reader.read(run) is None
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (left_canonical, nearest_isometry, phase_aligned, require_cuda, tfim_h, to_np,
-                           transfer_matrices)
+from _torch_parity import (left_canonical, nearest_isometry, phase_aligned, require_cuda,
+                           stiefel_advance_span_counts, tfim_h, to_np, transfer_matrices)
 from qmps_torch import kernel_ab
 from qmps_torch.algorithms.evolve import batched_quench_sweep
 from qmps_torch.algorithms.ground_state import find_ground_state
@@ -146,6 +146,49 @@ def test_stiefel_default_tier_on_the_card_twice():
         err = host_f64_sweep_energies(device_to_host_c128(As), device_to_host_c128(rs), tfim_h64_batch(g))[0] - exact
         assert es.shape == (16,) and np.all(np.isfinite(err))
         assert np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-4, err
+
+
+@pytest.mark.cuda
+def test_stiefel_descent_as_a_cuda_graph_matches_its_eager_steps():
+    """One start (D = 8, 64 rows, 24 environment iterations) taken 60 steps
+    two ways: 30 ``advance`` calls of 2 steps, eager (fewer than three), and
+    one call of 60, a CUDA graph (two eager warm-ups, a capture, 58
+    replays).  V, M, r and the readout's energies agree to 1e-6, the
+    graphed call leaves the package's full-float32 pin behind, and a
+    second graphed call leaves no device memory allocated behind it."""
+    from qmps_torch.parallel.sweep import _stiefel_sweep_programs
+
+    dev = require_cuda()
+    D, n = 8, 64
+    init, advance, finish = _stiefel_sweep_programs(D, 0.08, 0.9, 1, 24, 200)
+    gen = torch.Generator().manual_seed(3)
+    hs, V, M, r = init(torch.linspace(0.2, 1.8, n, device=dev),
+                       *(torch.randn((n, 2 * D, D), generator=gen).to(dev) for _ in range(2)))
+    eager = (V, M, r)
+    for _ in range(30):
+        eager = advance(*eager, hs, 2)
+    graphed = advance(V, M, r, hs, 60)
+    torch.cuda.synchronize()
+    assert (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32) == ("highest", False)
+    held = torch.cuda.memory_allocated()
+    advance(V, M, r, hs, 3)  # another capture leaves nothing behind (no new stream, no new cuBLAS workspace)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == held
+    for a, b in zip(eager, graphed):
+        assert (a - b).abs().max().item() <= 1e-6
+    es = [finish(x[0], x[2], hs)[0] for x in (eager, graphed)]
+    assert (es[0] - es[1]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_stiefel_descent_as_a_cuda_graph_opens_a_step_span_a_replay():
+    """A graphed ``advance`` of 10 steps on the card opens 10 step spans
+    (two eager warm-ups with their energy, backward and retraction, then 8
+    replays), one capture, which holds the step's three spans once more,
+    and 8 replay spans (on the CPU, none: tests/test_torch_spans.py)."""
+    assert stiefel_advance_span_counts(require_cuda(), 10) == {
+        "stiefel.step": 10, "stiefel.replay": 8, "stiefel.capture": 1, "stiefel.energy": 3,
+        "stiefel.backward": 3, "stiefel.retract": 3}
 
 
 @pytest.mark.cuda

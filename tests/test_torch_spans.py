@@ -2,8 +2,8 @@
 then recording nothing, the fused sweep's job, start, steps and pick with
 their parents and root, the energy objective and the kernel wrappers'
 spans, the Stiefel sweep's job, chunks, start, steps (with their energy,
-backward and retraction) and pick, and both sweeps' results bit for bit
-the same with spans on and off.
+backward and retraction; on the CPU never a replay or a capture) and pick,
+and both sweeps' results bit for bit the same with spans on and off.
 """
 import ast
 import pathlib
@@ -11,6 +11,7 @@ import threading
 
 import pytest
 import torch
+from _torch_parity import stiefel_advance_span_counts
 
 from qmps_torch.kernels import _lib
 from qmps_torch.parallel import sweep_ground_states_fused, sweep_ground_states_stiefel
@@ -137,6 +138,14 @@ def test_stiefel_sweep_records_its_job_chunks_start_steps_and_pick(spans):
         kids = sorted((s for s in got if s.parent_id == step.id), key=lambda s: s.start_ns)
         assert [s.name for s in kids] == ["stiefel.energy", "stiefel.backward", "stiefel.retract"]
         assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
+
+
+def test_stiefel_advance_on_the_cpu_steps_eagerly_with_no_replay_or_capture():
+    """On the CPU every step runs eagerly: ten steps, each with its energy,
+    backward and retraction, and no ``stiefel.replay`` or
+    ``stiefel.capture`` (a card's graphed descent: tests/test_torch_cuda.py)."""
+    assert stiefel_advance_span_counts(torch.device("cpu"), 10) == {
+        "stiefel.step": 10, "stiefel.energy": 10, "stiefel.backward": 10, "stiefel.retract": 10}
 
 
 def _worker():
