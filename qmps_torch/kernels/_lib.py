@@ -9,11 +9,11 @@ A missing compiler or a failed build raises: there is no silent fallback.
 Each C entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises on a non-zero code.
 
-``launches`` holds one plain-integer launch counter per kernel; a wrapper
-adds one (:func:`count`) where it launches its kernel and nowhere else.
-Each wrapper is decorated by :func:`launcher` with its key in ``launches``,
-so its whole host side, validation to count, is the program's span
-``kernel.<key>`` (``utils/profiling``).
+Every wrapper launches its kernel by :func:`launch`, the one holder of the
+C calling convention, which adds one to the kernel's plain-integer counter
+in ``launches``.  Each wrapper is decorated by :func:`launcher` with its key
+in ``launches``, so its whole host side, validation to count, is the
+program's span ``kernel.<key>`` (``utils/profiling``).
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 from ..utils import profiling
 
@@ -188,11 +190,26 @@ def raw_stream(device_index: int) -> int:
     takes: torch's own accessor for generated kernels, ~1 us where
     ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
     first (~5 us on the card's host, a fifth of K6's call at config 5)."""
-    import torch
-
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on the CUDA ``device``: ``qmps_<name>`` takes
+    each tensor as its data pointer, None as a null pointer, each int as it
+    is (in ``_SIGNATURES``' order) and the device's current stream last; the
+    device is made current only when it is not.  Then :func:`check`, :func:`count`."""
+    fn = getattr(lib(), "qmps_" + name)
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, raw_stream(index))
+    check(rc, name)
+    count(name)

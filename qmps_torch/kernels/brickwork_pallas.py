@@ -48,22 +48,10 @@ def _overlap_cuda(U1, U2, U1p, U2p, Mr, Ml, W) -> torch.Tensor:
                            (Ml, "Ml", m2), (W, "W", (16, 16))):
         _lib.require(t, name, c64, shape)
     ops = _overlap_operands(U1, U2, U1p, U2p, Mr, Ml, W)
-    dev = U1.device
-    out = torch.empty(B, dtype=c64, device=dev)
+    out = torch.empty(B, dtype=c64, device=U1.device)
     if B:
-        if dev.index == torch.cuda.current_device():
-            rc = _launch(ops, out, B, dev)
-        else:
-            with torch.cuda.device(dev):
-                rc = _launch(ops, out, B, dev)
-        _lib.check(rc, "brickwork_overlap")
-        _lib.count("brickwork_overlap")
+        _lib.launch("brickwork_overlap", U1.device, *ops, out, B)
     return out
-
-
-def _launch(ops, out, B, dev) -> int:
-    return _lib.lib().qmps_brickwork_overlap(*(t.data_ptr() for t in ops), out.data_ptr(), B,
-                                             _lib.raw_stream(dev.index))
 
 
 def _sector_state(U, x0, mid, x5):

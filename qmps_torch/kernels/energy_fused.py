@@ -161,13 +161,7 @@ def _fwd_cuda(As, hs, iters):
     lam = torch.empty(B, dtype=torch.complex64, device=As.device)
     v = torch.empty(B, 4, dtype=torch.complex64, device=As.device)
     if B:
-        with torch.cuda.device(As.device):
-            rc = _lib.lib().qmps_energy_fwd(
-                As.data_ptr(), hs.data_ptr(), e.data_ptr(), lam.data_ptr(), v.data_ptr(),
-                B, iters, torch.cuda.current_stream().cuda_stream,
-            )
-        _lib.check(rc, "energy_fwd")
-        _lib.count("energy_fwd")
+        _lib.launch("energy_fwd", As.device, As, hs, e, lam, v, B, iters)
     return e, lam, v
 
 
@@ -185,14 +179,7 @@ def _bwd_cuda(As, hs, lam, v, ct):
     Abar = torch.empty(B, 2, 2, 2, dtype=torch.complex64, device=As.device)
     hbar = torch.empty(B, 4, 4, dtype=torch.complex64, device=As.device)
     if B:
-        with torch.cuda.device(As.device):
-            rc = _lib.lib().qmps_energy_bwd(
-                As.data_ptr(), hs.data_ptr(), v.data_ptr(), lam.data_ptr(), ct.data_ptr(),
-                Abar.data_ptr(), hbar.data_ptr(), B, SERIES_K,
-                torch.cuda.current_stream().cuda_stream,
-            )
-        _lib.check(rc, "energy_bwd")
-        _lib.count("energy_bwd")
+        _lib.launch("energy_bwd", As.device, As, hs, v, lam, ct, Abar, hbar, B, SERIES_K)
     return Abar, hbar
 
 

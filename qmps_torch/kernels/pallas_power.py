@@ -158,13 +158,7 @@ def _dominant_eig_cuda(E: torch.Tensor, iters: int, method: str, left: bool = Fa
     v = torch.empty(B, 4, dtype=E.dtype, device=E.device)
     w = torch.empty(B, 4, dtype=E.dtype, device=E.device) if left else None
     if B:
-        with torch.cuda.device(E.device):
-            rc = _lib.lib().qmps_dominant_eig(
-                E.data_ptr(), lam.data_ptr(), v.data_ptr(), None if w is None else w.data_ptr(), B, iters,
-                _METHODS[method], torch.cuda.current_stream().cuda_stream,
-            )
-        _lib.check(rc, "dominant_eig")
-        _lib.count("dominant_eig")
+        _lib.launch("dominant_eig", E.device, E, lam, v, w, B, iters, _METHODS[method])
     return (lam, v, w) if left else (lam, v)
 
 
@@ -186,11 +180,7 @@ def _matpow_small_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
     E, M = _matpow_operands(E)
     B, N = E.shape[0], E.shape[-1]
     if B:
-        stream = torch.cuda.current_stream(E.device).cuda_stream
-        with torch.cuda.device(E.device):
-            rc = _lib.lib().qmps_matpow_small(E.data_ptr(), M.data_ptr(), B, N, iters, stream)
-        _lib.check(rc, "matpow_small")
-        _lib.count("matpow_small")
+        _lib.launch("matpow_small", E.device, E, M, B, N, iters)
     return M
 
 
@@ -199,15 +189,9 @@ def _matpow_large_cuda(E: torch.Tensor, iters: int) -> torch.Tensor:
     E, M = _matpow_operands(E)
     B, N = E.shape[0], E.shape[-1]
     if B:
-        stream = torch.cuda.current_stream(E.device).cuda_stream
-        with torch.cuda.device(E.device):
-            work = (torch.empty(matpow_work_floats(B, N), dtype=torch.float32, device=E.device)
-                    if N > MAX_SHARED_N else None)
-            rc = _lib.lib().qmps_matpow_large(
-                E.data_ptr(), M.data_ptr(), None if work is None else work.data_ptr(), B, N, iters, stream,
-            )
-        _lib.check(rc, "matpow_large")
-        _lib.count("matpow_large")
+        work = (torch.empty(matpow_work_floats(B, N), dtype=torch.float32, device=E.device)
+                if N > MAX_SHARED_N else None)
+        _lib.launch("matpow_large", E.device, E, M, work, B, N, iters)
     return M
 
 

@@ -107,14 +107,7 @@ def _fwd_cuda(As, Bs, W, iters, with_left):
     v = torch.empty(B, 4, dtype=torch.complex64, device=As.device)
     w = torch.empty(B, 4, dtype=torch.complex64, device=As.device) if with_left else None
     if B:
-        with torch.cuda.device(As.device):
-            rc = _lib.lib().qmps_tdvp_fwd(
-                As.data_ptr(), Bs.data_ptr(), W.data_ptr(), w_stride,
-                lam.data_ptr(), v.data_ptr(), w.data_ptr() if with_left else None,
-                B, iters, int(with_left), torch.cuda.current_stream().cuda_stream,
-            )
-        _lib.check(rc, "tdvp_fwd")
-        _lib.count("tdvp_fwd")
+        _lib.launch("tdvp_fwd", As.device, As, Bs, W, w_stride, lam, v, w, B, iters, int(with_left))
     return lam, v, w
 
 
@@ -136,15 +129,7 @@ def _bwd_cuda(As, Bs, W, lam, v, u, ct):
     Bbar = torch.empty(B, 2, 2, 2, dtype=torch.complex64, device=As.device)
     Wbar = torch.empty(B, 4, 4, dtype=torch.complex64, device=As.device)
     if B:
-        with torch.cuda.device(As.device):
-            rc = _lib.lib().qmps_tdvp_bwd(
-                As.data_ptr(), Bs.data_ptr(), W.data_ptr(), w_stride,
-                v.data_ptr(), u.data_ptr(), lam.data_ptr(), ct.data_ptr(),
-                Abar.data_ptr(), Bbar.data_ptr(), Wbar.data_ptr(),
-                B, torch.cuda.current_stream().cuda_stream,
-            )
-        _lib.check(rc, "tdvp_bwd")
-        _lib.count("tdvp_bwd")
+        _lib.launch("tdvp_bwd", As.device, As, Bs, W, w_stride, v, u, lam, ct, Abar, Bbar, Wbar, B)
     return Abar, Bbar, Wbar
 
 

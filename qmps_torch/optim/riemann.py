@@ -32,12 +32,13 @@ def _retract(V: torch.Tensor) -> torch.Tensor:
     return u @ vh
 
 
-def _descent_step(V, M, G, lr: float, momentum: float):
-    """One heavy-ball step in the tangent space with polar retraction; the
-    momentum is re-projected after the retraction (vector transport by
-    projection)."""
+def _descent_step(V, M, G, lr: float, momentum: float, retract: Callable = _retract):
+    """One heavy-ball step in the tangent space with a polar retraction
+    (``retract``: the SVD's here, the batched sweeps' closed-form 2x2 or
+    Newton-Schulz one); the momentum is re-projected after the retraction
+    (vector transport by projection)."""
     M = momentum * M + _project_tangent(V, G)
-    V = _retract(V - lr * M)
+    V = retract(V - lr * M)
     return V, _project_tangent(V, M)
 
 

@@ -158,6 +158,22 @@ def chart_point_chunk(n: int, restarts: int, row_bytes: int, device) -> int:
     return max(1, min(n, int(free // 2 // shards_on_device() // max(1, restarts * row_bytes))))
 
 
+def _restart_rows(hs: torch.Tensor, restarts: int) -> torch.Tensor:
+    """(n, 4, 4) coupling matrices -> (n restarts, 4, 4), each point's
+    matrix on each of its restarts' rows."""
+    return hs[:, None].expand(hs.shape[0], restarts, 4, 4).reshape(-1, 4, 4)
+
+
+def _best_of_restarts(e: torch.Tensor, restarts: int, *rows: torch.Tensor):
+    """The best restart of each point: (n restarts,) energies and row
+    tensors (n restarts, ...) -> (n,) energies and each tensor's (n, ...)
+    rows of the lowest energy."""
+    e = e.reshape(-1, restarts)
+    j = torch.argmin(e, dim=1)
+    best = torch.arange(e.shape[0], device=e.device), j
+    return e[best], *(t.reshape(e.shape + t.shape[1:])[best] for t in rows)
+
+
 def _sweep_from_starts(gs: torch.Tensor, p0s: torch.Tensor, D: int, ansatz: str, steps: int, lr: float,
                        refine_passes: int, recycle: bool, point_chunk: int | None, jitter, mesh=None):
     """The body of ``sweep_ground_states`` from given starts p0s (n,
@@ -184,14 +200,10 @@ def _sweep_from_starts(gs: torch.Tensor, p0s: torch.Tensor, D: int, ansatz: str,
         m_all, c = hs_b.shape[0], chunk_of(hs_b)
         es, ps = [], []
         for i in range(0, m_all, c):
-            m = min(c, m_all - i)
-            hs = hs_b[i:i + m, None].expand(m, restarts, 4, 4).reshape(-1, 4, 4)
-            e, p = optimize(hs, p0[i:i + m].reshape(-1, k))
-            e = e.reshape(m, restarts)
-            j = torch.argmin(e, dim=1)
-            rows = torch.arange(m, device=e.device)
-            es.append(e[rows, j])
-            ps.append(p.reshape(m, restarts, k)[rows, j])
+            e, p = optimize(_restart_rows(hs_b[i:i + c], restarts), p0[i:i + c].reshape(-1, k))
+            e, p = _best_of_restarts(e, restarts, p)
+            es.append(e)
+            ps.append(p)
         return torch.cat(es), torch.cat(ps)
 
     def evaluate_block(hs_b, p):
@@ -444,14 +456,11 @@ def _fused_sweep_programs(lr, momentum, restarts, iters):
     """(init, advance, finish) of sweep_ground_states_fused.  They take
     and return plain tensors, so a caller can start them from any state —
     the JAX package's included (utils/convert.py)."""
+    from ..optim.riemann import _descent_step
 
     def loss(V, hs):
         A = V.reshape(-1, 2, 2, 2).transpose(1, 2)  # (B, s, i, j)
         return energy_objective_fused(A, hs, iters)
-
-    def sym_proj(V, G):
-        VG = V.mH @ G
-        return G - V @ ((VG + VG.mH) / 2)
 
     def polar(W):
         H = W.mH @ W  # (B, 2, 2) PSD
@@ -479,9 +488,7 @@ def _fused_sweep_programs(lr, momentum, restarts, iters):
     def init(gs, xre, xim):
         """(hs (B, 4, 4) real, V0 (B, 4, 2), M0 = 0) with B = n restarts."""
         with span("sweep.init"):
-            n = gs.shape[0]
-            hs = tfim_matrix(gs.to(xre))
-            hs = hs[:, None].expand(n, restarts, 4, 4).reshape(-1, 4, 4)
+            hs = _restart_rows(tfim_matrix(gs.to(xre)), restarts)
             V0, _ = torch.linalg.qr(torch.complex(xre, xim))
             return hs, V0, torch.zeros_like(V0)
 
@@ -495,19 +502,15 @@ def _fused_sweep_programs(lr, momentum, restarts, iters):
                     # G.conj() is not needed here
                     (G,) = torch.autograd.grad(loss(Vg, hs).sum(), Vg)
                 with torch.no_grad():
-                    M = momentum * M + sym_proj(V, G)
-                    V = polar(V - lr * M)
-                    M = sym_proj(V, M)
+                    V, M = _descent_step(V, M, G, lr, momentum, polar)
         return V, M
 
     @torch.no_grad()
     def finish(V, hs):
         """Best of the restarts: (energies (n,), As (n, 2, 2, 2))."""
         with span("sweep.finish"):
-            er = loss(V, hs).reshape(-1, restarts)
-            i = torch.argmin(er, dim=1)
-            Vbest = V.reshape(-1, restarts, 4, 2)[torch.arange(er.shape[0], device=V.device), i]
-            return er.min(dim=1).values, Vbest.reshape(-1, 2, 2, 2).transpose(1, 2).contiguous()
+            e, Vb = _best_of_restarts(loss(V, hs), restarts, V)
+            return e, Vb.reshape(-1, 2, 2, 2).transpose(1, 2).contiguous()
 
     return init, advance, finish
 
@@ -642,7 +645,7 @@ def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, r
     included).  Each runs at the matmul precision it is called under: a
     caller that wants a tier enters ``_matmul_tier`` around the call, in its
     own thread."""
-    from ..optim.riemann import _project_tangent, isometry_energy_warm
+    from ..optim.riemann import _descent_step, isometry_energy_warm
 
     def loss(V, r, hs, iters):
         return isometry_energy_warm(V, hs, D, r, iters, "unroll")
@@ -652,7 +655,7 @@ def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, r
         n restarts, slot 0 of each point from ``warm`` where given."""
         with span("stiefel.init"):
             n = gs.shape[0]
-            hs = tfim_matrix(gs.to(xre))[:, None].expand(n, restarts, 4, 4).reshape(-1, 4, 4)
+            hs = _restart_rows(tfim_matrix(gs.to(xre)), restarts)
             V0, _ = torch.linalg.qr(torch.complex(xre, xim))
             if warm is not None:
                 V0 = V0.reshape(n, restarts, 2 * D, D)
@@ -672,9 +675,7 @@ def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, r
             with span("stiefel.backward"):
                 (G,) = torch.autograd.grad(es.sum(), Vg)
         with torch.no_grad(), span("stiefel.retract"):
-            M = momentum * M + _project_tangent(V, G)
-            V = _polar_ns(V - lr * M)
-            M = _project_tangent(V, M)
+            V, M = _descent_step(V, M, G, lr, momentum, _polar_ns)
         return V, M, r_new.detach()
 
     def advance(V, M, r, hs, length):
@@ -715,12 +716,8 @@ def _stiefel_sweep_programs(D: int, lr: float, momentum: float, restarts: int, r
         (n, 2, D, D), rs (n, D, D))."""
         with span("stiefel.finish"):
             es, r = loss(V, _dominant_environment(V, r, D), hs, final_iters)
-            er = es.reshape(-1, restarts)
-            i = torch.argmin(er, dim=1)
-            rows = torch.arange(er.shape[0], device=V.device)
-            Vb = V.reshape(-1, restarts, 2 * D, D)[rows, i]
-            rb = r.reshape(-1, restarts, D, D)[rows, i]
-            return er.min(dim=1).values, Vb.reshape(-1, D, 2, D).transpose(1, 2).contiguous(), rb
+            e, Vb, rb = _best_of_restarts(es, restarts, V, r)
+            return e, Vb.reshape(-1, D, 2, D).transpose(1, 2).contiguous(), rb
 
     return init, advance, finish
 

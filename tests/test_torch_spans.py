@@ -3,9 +3,11 @@ then recording nothing, the fused sweep's job, start, steps and pick with
 their parents and root, the energy objective and the kernel wrappers'
 spans, the Stiefel sweep's job, chunks, start, steps (with their energy,
 backward and retraction; on the CPU never a replay or a capture) and pick,
-and both sweeps' results bit for bit the same with spans on and off.
+both sweeps' results bit for bit the same with spans on and off, and the
+kernels' one launch path (``_lib.launch``) against a fake library.
 """
 import ast
+import contextlib
 import pathlib
 import threading
 
@@ -188,18 +190,75 @@ def _calls(node, attr):
 
 
 def test_every_launch_counter_sits_in_its_launchers_span():
-    """Each function that calls ``_lib.count(<name>)`` is decorated by
-    ``_lib.launcher(<name>)``: the span and the counter share one boundary,
-    for every key of ``_lib.launches``."""
-    counted = set()
+    """Each function that calls ``_lib.launch(<name>)``, which counts the
+    launch, is decorated by ``_lib.launcher(<name>)``: the span and the
+    counter share one boundary, for every key of ``_lib.launches``.  No
+    other kernel module counts, calls the library or reads a stream or a
+    device itself."""
+    launched = set()
     for path in sorted(KERNELS.glob("*.py")):
-        for fn in ast.walk(ast.parse(path.read_text())):
+        text = path.read_text()
+        if path.name != "_lib.py":
+            assert not any(s in text for s in ("lib().qmps_", ".cuda_stream", "torch.cuda.device(")), path.name
+        for fn in ast.walk(ast.parse(text)):
             if not isinstance(fn, ast.FunctionDef):
                 continue
-            names = {c.args[0].value for c in _calls(fn, "count")}
+            assert not _calls(fn, "count"), (path.name, fn.name)
+            names = {c.args[0].value for c in _calls(fn, "launch")}
             if not names:
                 continue
             spans = {c.args[0].value for d in fn.decorator_list for c in _calls(d, "launcher")}
             assert names == spans, (path.name, fn.name, names, spans)
-            counted |= names
-    assert counted == set(_lib.launches)
+            launched |= names
+    assert launched == set(_lib.launches)
+
+
+class _FakeLibrary:
+    """A kernel library whose one entry point records its arguments and
+    returns ``rc``."""
+
+    def __init__(self, rc):
+        self.rc, self.calls = rc, []
+
+    def qmps_energy_fwd(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+_X, _Y = torch.zeros(3), torch.ones(2, 2)
+
+
+@pytest.mark.parametrize("args, index, rc, expected", [
+    pytest.param((_X, _Y, 5, 7), 0, 0, (_X.data_ptr(), _Y.data_ptr(), 5, 7), id="tensors_as_pointers"),
+    pytest.param((_X, None, 5), 0, 0, (_X.data_ptr(), None, 5), id="none_as_null"),
+    pytest.param((_X, 5), 1, 0, (_X.data_ptr(), 5), id="stream_of_the_given_card"),
+    pytest.param((_X, 5), 0, 700, None, id="failure_raises_and_counts_nothing"),
+    pytest.param((5,), 2, 0, (5,), id="success_counts_one"),
+])
+def test_launch_passes_the_calling_convention(monkeypatch, args, index, rc, expected):
+    """``_lib.launch`` against a fake library on the CPU: the card current
+    is 0 (``index`` 2 makes 2 current first), the stream of card i is
+    1000 + i; the device guard is entered only off the current card."""
+    current, entered = 2 if index == 2 else 0, []
+    fake = _FakeLibrary(rc)
+
+    @contextlib.contextmanager
+    def guard(i):
+        entered.append(i)
+        yield
+
+    monkeypatch.setattr(_lib, "_lib", fake)
+    monkeypatch.setattr(_lib, "launches", dict.fromkeys(_lib.launches, 0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i, raising=False)
+    device = torch.device("cuda", index)
+    if rc:
+        with pytest.raises(RuntimeError, match="energy_fwd failed to launch: cudaError 700"):
+            _lib.launch("energy_fwd", device, *args)
+        assert not any(_lib.launches.values())
+        return
+    _lib.launch("energy_fwd", device, *args)
+    assert fake.calls == [expected + (1000 + index,)]
+    assert entered == ([index] if index != current else [])
+    assert _lib.launches == {**dict.fromkeys(_lib.launches, 0), "energy_fwd": 1}
