@@ -96,9 +96,17 @@ Phases (any failure exits non-zero, and nothing is caught):
      step of 50 inner steps under torch.profiler (device idle share, the
      largest host operations).  The dense objective launches no hand
      kernel, and the counters show it;
- 14. the large-D path in float32 (``large_d_path``), no hand kernel (the
-     counters show it): one complex64 bmm's error against complex128 at
-     full float32 and at the "default" tier; ``StiefelSweepConfig`` at
+ 14. the large-D path in float32: first the environment unroll's two
+     kernels alone (``stiefel_unroll_kernels``) at the Stiefel step's
+     shape (1,024 rows, 96 iterations, D = 16 and 32) and the chart
+     sweeps' (1,024 rows, 24 iterations, D = 2, 4 and 8), from an r0 that
+     is an expand: r, lam and A's cotangent against the plain versions at
+     complex128 (2e-5, 2e-5 and 1e-4 of the largest entry), one launch each
+     way; each kernel timed in turns against plain autograd through the
+     same iterations as CUDA graphs, and forward with backward eagerly as a
+     sweep runs them; then ``large_d_path``, no hand kernel but the
+     unroll's two (the counters show it): one complex64 bmm's error against
+     complex128 at full float32 and at the "default" tier; ``StiefelSweepConfig`` at
      full width, 1,024 g in [0.1, 2.0] + 1e-3, D = 16 (300 steps, full
      float32) and D = 32 (180 steps, "default" tier, 60-step full tail),
      each timed after an untimed call of WARM_STEPS steps, read back in
@@ -133,8 +141,8 @@ Phases (any failure exits non-zero, and nothing is caught):
      GMRES environments at D = 16, 24 and 32; one D = 64 iteration under
      torch.profiler;
  16. the chart sweeps and deep brickwork in float32
-     (``sweeps_and_deep_brickwork``), no hand kernel (the counters show
-     it), each after an untimed call of WARM_STEPS steps and read back in
+     (``sweeps_and_deep_brickwork``), no hand kernel but the environment
+     unroll's two (the counters show it), each after an untimed call of WARM_STEPS steps and read back in
      float64 on the host from its returned parameters: (a) bench.py's
      `sweep` row, sweep_ground_states D = 2 "suN", 1,024 g in [0.1, 2.0] +
      1e-3, 300 steps, 4 restarts, 1 refine pass (median < 5e-4, max <
@@ -214,7 +222,8 @@ in its three-product form (``csquare_flops``, also above N = 64: the
 bound of K8's tiles is their products on the tensor cores, with the
 CUDA-core figure beside it), K4 with one squaring chain
 for both eigenvectors; K6's those of the cheapest pairwise contraction
-order of its network (``cheapest_contraction``).  All run on the float32
+order of its network (``cheapest_contraction``); the unroll's the products
+of its iterations (``unroll_work``).  All run on the float32
 CUDA cores (67 TFLOP/s) but K7's products from kMatpowTcMinN on, K8's and
 K6's W product, which run on the tensor cores in 3xTF32: three TF32
 products each, over 495 TFLOP/s.
@@ -270,6 +279,13 @@ ECHO_G0, ECHO_G1, ECHO_T, ECHO_STEPS, ECHO_INNER, ECHO_GS = 1.5, 0.2, 0.8, 20, 1
 STF_POINTS, STF_G = 1024, (0.1, 2.0)
 STF_RUNS = {16: {"steps": 300}, 32: {"steps": 180, "precision": "default", "polish_steps": 60}}
 WARM_STEPS = 10  # the untimed warm-up of the phase-14 sweeps and the phase-15 VUMPS runs
+# phase 14's first part: the environment unroll's two kernels at the shapes
+# of their callers, D -> (rows, iterations): the Stiefel step's (D = 16 and
+# 32: 1,024 rows, 96 iterations) and the chart sweeps' recycled loss (D = 2,
+# 4 and 8: a 1,024-point batch, 24 iterations); D = 16's figures are the
+# kernels' entries of the JSON line
+UNROLL_SHAPES = {16: (1024, 96), 32: (1024, 96), 2: (1024, 24), 4: (1024, 24), 8: (1024, 24)}
+UNROLL_REPS = 20
 LARGE_D, LARGE_D_STEPS = 64, 150
 # the classical uMPS path at bench.py's VUMPS rows (bench.py:589-675,
 # :779-786): D = 8 250 iterations (k 32), D = 32 and 64 run to the knee
@@ -916,8 +932,151 @@ def below_exact_record(D, gvals, g_dev, exact, As, rs, err32, err64, dev):
     return out
 
 
+def unroll_work(D, rows, iters):
+    """((flops, bytes) of the forward, (flops, bytes) of the backward) of
+    the unroll's kernels on ``rows`` rows, as they run the algorithm: the
+    forward per iteration, and once for the Rayleigh quotient, 2 d D^3
+    complex multiply-adds (X_s = A_s r, sum_s X_s A_s^dag; d = 2) with the
+    norm and scaling (6 D^2); the backward per iteration 5 d D^3 (G_W A_s,
+    its product with r_k^dag, A_s r_k, G_W^dag times that, A_s^dag G_W
+    A_s).  Bytes: the forward reads V and r0 and writes r, lam and the saved
+    r_k and ||W_k||; the backward reads V, the saved states, r and r's
+    cotangent and writes A's cotangent."""
+    c, n2 = 8, D * D  # bytes of a complex64, entries of a D x D matrix
+    saved = iters * (n2 * c + 4)
+    fwd = ((iters + 1) * (CMAC * 4 * D ** 3 + 6 * n2), 4 * n2 * c + c + saved)
+    bwd = (iters * CMAC * 10 * D ** 3, 6 * n2 * c + saved)
+    return tuple((flops * rows, nbytes * rows) for flops, nbytes in (fwd, bwd))
+
+
+def graph_of(fn):
+    """fn captured as a CUDA graph after two calls on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g
+
+
+def stiefel_unroll_kernels(dev, card, shapes=UNROLL_SHAPES, reps=UNROLL_REPS):
+    """Phase 14's first part: the environment unroll's two kernels
+    (``kernels/stiefel_unroll``) at each of ``shapes`` (D -> rows,
+    iterations): seeded isometries, r0 = I / sqrt(D) as an expand over the
+    rows (a descent's first step), a seeded cotangent of r.  Through
+    ``right_eigpair_warm_unroll`` and autograd, one launch each way: r, lam
+    and A's cotangent against the plain versions at complex128 from the same
+    complex64 inputs, each error over the largest entry (2e-5 for r and lam,
+    1e-4 for the cotangent), and the wrappers' own calls reproduce them.
+    Timed in turns (plain, kernel, kernel, plain): the kernels alone,
+    queued behind a spin kernel, against plain autograd through
+    ``_power_forward`` as CUDA graphs (the forward under no_grad, forward and
+    backward), both the card's time; and the path as a sweep runs it,
+    eagerly through autograd, host and card, against the same plain path.
+    Returns (the two kernels' entries of the JSON line, their launches in
+    this part)."""
+    from qmps_torch.kernels import _lib
+    from qmps_torch.kernels import stiefel_unroll as su
+    from qmps_torch.mps.transfer import _power_forward, right_eigpair_warm_unroll
+
+    c64, c128 = torch.complex64, torch.complex128
+    entries = {"unroll_fwd": {}, "unroll_bwd": {}}
+    _lib.reset_launches()
+    for D, (rows, iters) in shapes.items():
+        rng = np.random.default_rng(D)
+        X = rng.normal(size=(rows, 2 * D, D)) + 1j * rng.normal(size=(rows, 2 * D, D))
+        V = torch.from_numpy(np.linalg.qr(X)[0].astype(np.complex64)).to(dev).reshape(rows, D, 2, D)
+        A = V.transpose(1, 2)
+        r0 = (torch.eye(D, dtype=c64, device=dev) / D ** 0.5).expand(rows, D, D)
+        g = torch.from_numpy((rng.normal(size=(rows, D, D)) + 1j * rng.normal(size=(rows, D, D)))
+                             .astype(np.complex64)).to(dev)
+
+        def through_autograd(run):
+            Ag = A.detach().requires_grad_()
+            lam, r = run(Ag, Ag, r0, iters)
+            (gA,) = torch.autograd.grad((r.conj() * g).real.sum(), Ag)
+            return lam.detach(), r.detach(), gA
+
+        before = dict(_lib.launches)
+        lam, r, gA = through_autograd(right_eigpair_warm_unroll)
+        torch.cuda.synchronize()
+        once = {k: v - before[k] for k, v in _lib.launches.items()}
+        require(once == {**dict.fromkeys(once, 0), "stiefel_unroll_fwd": 1, "stiefel_unroll_bwd": 1},
+                f"the unroll at D = {D}: one launch each way {once}")
+        V64 = V.to(c128)
+        lam_p, r_p, rs_p, ns_p = su._fwd_plain(V64, r0.to(c128), iters, True)
+        gV_p = su._bwd_plain(V64, rs_p, ns_p, r_p, g.to(c128))
+        errs = {}
+        for name, x, ref in (("r", r, r_p), ("lam", lam, lam_p), ("gA", gA.transpose(1, 2), gV_p)):
+            d = (x.to(c128) - ref).abs().max().item()
+            errs[name] = (d, d / ref.abs().max().item())
+        print(f"unroll kernels at D = {D} ({rows} rows, {iters} iterations) against the plain versions at "
+              f"complex128: r {errs['r'][1]:.3g} (tol 2e-5), lam {errs['lam'][1]:.3g} (tol 2e-5), A's cotangent "
+              f"{errs['gA'][1]:.3g} (tol 1e-4), each over the largest entry", flush=True)
+        require(errs["r"][1] < 2e-5 and errs["lam"][1] < 2e-5 and errs["gA"][1] < 1e-4,
+                f"the unroll's kernels against their plain versions at D = {D}")
+
+        # the wrappers alone, as timed below, reproduce the checked outputs
+        r0c = r0.contiguous()
+        lam_k, r_k, rs_k, ns_k = su._fwd_cuda(V, r0c, iters, True)
+        gV_k = su._bwd_cuda(V, rs_k, ns_k, r_k, g)
+        require(torch.equal(lam_k, lam) and torch.equal(r_k, r) and torch.equal(gV_k, gA.transpose(1, 2)),
+                f"the unroll's timed calls reproduce its outputs at D = {D}")
+        Ag = A.detach().requires_grad_()
+
+        def plain_fwd():
+            with torch.no_grad():
+                _power_forward(A, A, r0, iters)
+
+        def plain_both():
+            with torch.enable_grad():
+                _, rr = _power_forward(Ag, Ag, r0, iters)
+                torch.autograd.grad((rr.conj() * g).real.sum(), Ag)
+
+        g_fwd, g_both = graph_of(plain_fwd), graph_of(plain_both)
+        t = {k: [] for k in ("fwd", "bwd", "plain_fwd", "plain_bwd", "eager", "plain_eager")}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            if turn == "plain":
+                f = cuda_ms(g_fwd.replay, reps, queued=True)
+                t["plain_fwd"].append(f)
+                t["plain_bwd"].append(cuda_ms(g_both.replay, reps, queued=True) - f)
+                t["plain_eager"].append(cuda_ms(lambda: through_autograd(_power_forward), 5))
+            else:
+                t["fwd"].append(cuda_ms(lambda: su._fwd_cuda(V, r0c, iters, True), reps, queued=True))
+                t["bwd"].append(cuda_ms(lambda: su._bwd_cuda(V, rs_k, ns_k, r_k, g), reps, queued=True))
+                t["eager"].append(cuda_ms(lambda: through_autograd(right_eigpair_warm_unroll), 5))
+        del g_fwd, g_both, rs_k, ns_k
+        (ff, fb), (bf, bb) = unroll_work(D, rows, iters)
+        bounds = {"fwd": bound(ff, fb), "bwd": bound(bf, bb)}
+        ms = {k: sum(v) / len(v) for k, v in t.items()}
+        print(f"  times, a mean of 2 turns (plain, kernel, kernel, plain): forward {ms['fwd']:.4f} ms "
+              f"(bound {bounds['fwd'][0]:.4f}, {100 * bounds['fwd'][0] / ms['fwd']:.1f}%), backward "
+              f"{ms['bwd']:.4f} ms (bound {bounds['bwd'][0]:.4f}, {100 * bounds['bwd'][0] / ms['bwd']:.1f}%); plain "
+              f"autograd as CUDA graphs: forward {ms['plain_fwd']:.4f}, backward {ms['plain_bwd']:.4f} ms; eager "
+              f"forward and backward as a sweep runs them (host and card): kernels {ms['eager']:.4f}, plain "
+              f"{ms['plain_eager']:.4f} ms (on {card})", flush=True)
+        for part, err in (("fwd", max(errs["r"][0], errs["lam"][0])), ("bwd", errs["gA"][0])):
+            row = entries[f"unroll_{part}"]
+            if D == 16:  # the Stiefel step's shape: the entry's own figures
+                row.update(batch=rows, D=D, iters=iters, ms=ms[part], plain_ms=ms[f"plain_{part}"],
+                           library_ms=None, bound_ms=bounds[part][0], bound_by=bounds[part][1])
+            row.update({f"ms_d{D}": ms[part], f"plain_ms_d{D}": ms[f"plain_{part}"],
+                        f"bound_ms_d{D}": bounds[part][0], f"eager_ms_d{D}": ms["eager"],
+                        f"plain_eager_ms_d{D}": ms["plain_eager"],
+                        "max_abs_err": max(row.get("max_abs_err", 0.0), err)})
+    launched = {k: _lib.launches[k] for k in ("stiefel_unroll_fwd", "stiefel_unroll_bwd")}
+    require(not any(v for k, v in _lib.launches.items() if k not in launched),
+            f"the unroll's part launches no other hand kernel {dict(_lib.launches)}")
+    return entries, launched
+
+
 def large_d_path(dev, card, pool):
-    """Phase 14: the large-D path on the card, float32, no hand kernel;
+    """Phase 14: the large-D path on the card, float32, no hand kernel but
+    the environment unroll's two;
     the sweeps read back in float64 on ``pool`` (a ``host_pool``).
     Returns the figures of the summary line."""
     from qmps_torch.ham.exact import tfim_gs_energy_f64
@@ -1055,7 +1214,9 @@ def large_d_path(dev, card, pool):
 
     launched = dict(_lib.launches)
     print(f"phase 14 hand-kernel launches: {launched}")
-    require(not any(launched.values()), "the large-D path launches no hand kernel")
+    require(not any(v for k, v in launched.items() if not k.startswith("stiefel_unroll_"))
+            and (dev.type != "cuda" or launched["stiefel_unroll_fwd"] and launched["stiefel_unroll_bwd"]),
+            "the large-D path launches the unroll's two kernels and no other hand kernel")
     return out
 
 
@@ -1350,7 +1511,7 @@ def sweeps_and_deep_brickwork(dev, card, pool, points=SW_POINTS, steps=SW_STEPS,
     each after an untimed call of WARM_STEPS steps, read back in float64
     on the host (``pool``, a ``host_pool``); one "deep_bw" descent step of
     the sweep's batch at D = 8 and D = 16 under torch.profiler.  No hand
-    kernel, and the counters show it.  Returns the figures of the summary
+    kernel but the environment unroll's two, and the counters show it.  Returns the figures of the summary
     line (the arguments cut the sizes for a rehearsal on the CPU)."""
     from qmps_torch.algorithms import ground_state_deep_brickwork
     from qmps_torch.ham.exact import tfim_gs_energy_f64
@@ -1468,7 +1629,8 @@ def sweeps_and_deep_brickwork(dev, card, pool, points=SW_POINTS, steps=SW_STEPS,
 
     launched = dict(_lib.launches)
     print(f"phase 16 hand-kernel launches: {launched}")
-    require(not any(launched.values()), "the chart sweeps and the deep brickwork launch no hand kernel")
+    require(not any(v for k, v in launched.items() if not k.startswith("stiefel_unroll_")),
+            "the chart sweeps and the deep brickwork launch no hand kernel but the unroll's two")
     return out
 
 
@@ -2122,7 +2284,8 @@ def stiefel_tier_sharded(dev, card, meshes, pool):
             require(len(seen) == n * (first + last) and all(p == "high" for _, p in low)
                     and all(p == "highest" for _, p in tail) and all(len(t) == threads for t in per_thread),
                     f"phase 19 Stiefel {tag}: each shard's first steps under the tier, its polish at full float32")
-            require(not any(_lib.launches.values()), f"phase 19 Stiefel {tag}: no hand kernel {dict(_lib.launches)}")
+            require(not any(v for k, v in _lib.launches.items() if not k.startswith("stiefel_unroll_")),
+                    f"phase 19 Stiefel {tag}: no hand kernel but the unroll's two {dict(_lib.launches)}")
             require(np.median(err) < 5e-4 and err.max() < 5e-3 and err.min() > -1e-4,
                     f"phase 19 Stiefel {tag}: float64 readout against the exact energy")
             key = "card_twice" if mesh is not None else "unsharded"
@@ -2864,8 +3027,10 @@ def main() -> int:
     # the float64 readouts' processes of phases 14 and 16, started while
     # the card runs phase 14's first sweep
     with host_pool() as pool:
-        # ---- 14. the large-D path: Krylov, the Stiefel sweeps, certificates ----
+        # ---- 14. the large-D path: the unroll's kernels, Krylov, the Stiefel sweeps, certificates ----
         t14 = time.perf_counter()
+        unroll, launches_u = stiefel_unroll_kernels(dev, card)
+        results.update(unroll)
         large = large_d_path(dev, card, pool)
         print(f"phase 14 in {time.perf_counter() - t14:.1f} s")
 
@@ -2909,11 +3074,14 @@ def main() -> int:
         "K8": ("matpow_large", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:332"),
         # K8 above N = 64: its launches are phase 12's D = 16 run's (the counter matpow_large)
         "K8t": ("matpow_tc_tiles", "qmps_torch/csrc/matpow.cu", "qmps_tpu/kernels/pallas_power.py:332"),
+        # no TPU kernel: the JAX package runs the unroll through XLA; launches are phase 14's first part's
+        "unroll_fwd": ("stiefel_unroll_fwd", "qmps_torch/csrc/stiefel_unroll.cu", "qmps_tpu/mps/transfer.py:378"),
+        "unroll_bwd": ("stiefel_unroll_bwd", "qmps_torch/csrc/stiefel_unroll.cu", "qmps_tpu/mps/transfer.py:378"),
     }
     # each kernel's launches in the runs of its own main path (phase 5, 7, 9
     # or 12: the checked call and the timed ones)
     all_launches = {**launches, "tdvp_fwd": launches_q["tdvp_fwd"], "tdvp_bwd": launches_q["tdvp_bwd"],
-                    "brickwork_overlap": launches_5["brickwork_overlap"]}
+                    "brickwork_overlap": launches_5["brickwork_overlap"], **launches_u}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches_12[k] if k in launches_12 else all_launches[name], **results[k]}

@@ -42,7 +42,8 @@ LINK_FLAGS = [*_ARCH, "-shared"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
 launches = {"dominant_eig": 0, "energy_fwd": 0, "energy_bwd": 0, "tdvp_fwd": 0, "tdvp_bwd": 0,
-            "brickwork_overlap": 0, "matpow_small": 0, "matpow_large": 0}
+            "brickwork_overlap": 0, "matpow_small": 0, "matpow_large": 0, "stiefel_unroll_fwd": 0,
+            "stiefel_unroll_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "qmps_brickwork_overlap": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "qmps_matpow_small": [_P, _P, _I, _I, _I, _P],
     "qmps_matpow_large": [_P, _P, _P, _I, _I, _I, _P],
+    "qmps_stiefel_unroll_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "qmps_stiefel_unroll_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # an empty kernel on K5's grid: the launch floor of a measurement, no counter
     "qmps_empty": [_I, _P],
 }

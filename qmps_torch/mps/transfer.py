@@ -10,7 +10,8 @@ adjoint (``dominant_eigpair_cgauge``), ``right_fixed_point`` and
 bordered-GMRES adjoint: ``_RightEigpairMatvec``), and the recycled fixed
 points of the large-D optimizers: ``right_eigpair_warm`` (power iteration
 from the previous step's environment, implicit adjoint by LU or GMRES)
-and ``right_eigpair_warm_unroll`` (plain autograd through the iterations).
+and ``right_eigpair_warm_unroll`` (plain autograd through the iterations,
+or on the card one kernel launch each way: ``kernels/stiefel_unroll``).
 
 The adjoints are ``torch.autograd.Function``s.  For a holomorphic map the
 JAX custom_vjp's cotangent Ebar pairs as dlam = sum Ebar dE; PyTorch's
@@ -295,5 +296,21 @@ def right_eigpair_warm_unroll(A: torch.Tensor, B: torch.Tensor, r0: torch.Tensor
     iterations: batched matmuls only (the batched LU of the implicit
     adjoint is pivot-sequential), the exact gradient of the iters-refined
     energy that the recycled optimizer descends; it equals the implicit
-    gradient as the power residual vanishes.  The batched sweeps use it."""
+    gradient as the power residual vanishes.  The batched sweeps use it.
+
+    On the card (complex64, d = 2, D <= 32, B the same tensor as A, r0 with
+    no gradient) the iterations and their adjoint run as one hand-written
+    kernel launch each (``kernels/stiefel_unroll``), the same arithmetic in
+    full float32 at every matmul tier (the kernels' sums are FMAs on the
+    CUDA cores, no product the tier governs); elsewhere (the CPU,
+    complex128) plain autograd through ``_power_forward``."""
+    # r0's batch broadcasts to A's, tested by hand: torch.broadcast_shapes
+    # imports sympy at its first call, seconds of a process's set-up
+    batch, r0_batch = A.shape[:-3], r0.shape[:-2]
+    if (A.is_cuda and B is A and A.dtype == r0.dtype == torch.complex64 and A.shape[-3] == 2
+            and A.shape[-1] == A.shape[-2] <= 32 and not r0.requires_grad and len(r0_batch) <= len(batch)
+            and all(n in (1, m) for n, m in zip(reversed(r0_batch), reversed(batch)))):
+        from ..kernels.stiefel_unroll import unroll_eigpair
+
+        return unroll_eigpair(A, r0, iters)
     return _power_forward(A, B, r0, iters)

@@ -92,7 +92,8 @@ def test_sweep_on_card():
     es, As = sweep_ground_states_fused(torch.tensor(g, device=dev), steps=60, restarts=2)
     torch.cuda.synchronize()
     assert _lib.launches == {"dominant_eig": 0, "energy_fwd": 61, "energy_bwd": 60, "tdvp_fwd": 0, "tdvp_bwd": 0,
-                             "brickwork_overlap": 0, "matpow_small": 0, "matpow_large": 0}
+                             "brickwork_overlap": 0, "matpow_small": 0, "matpow_large": 0,
+                             "stiefel_unroll_fwd": 0, "stiefel_unroll_bwd": 0}
     assert es.device.type == "cuda" and As.dtype == torch.complex64
     A = to_np(As).astype(np.complex128)
     assert np.all(np.isfinite(A))
@@ -155,7 +156,9 @@ def test_stiefel_descent_as_a_cuda_graph_matches_its_eager_steps():
     one call of 60, a CUDA graph (two eager warm-ups, a capture, 58
     replays).  V, M, r and the readout's energies agree to 1e-6, the
     graphed call leaves the package's full-float32 pin behind, and a
-    second graphed call leaves no device memory allocated behind it."""
+    second graphed call leaves no device memory allocated behind it.  The
+    unroll runs in its two kernels, launched by the eager steps and the
+    capture alone (a replay launches through the graph)."""
     from qmps_torch.parallel.sweep import _stiefel_sweep_programs
 
     dev = require_cuda()
@@ -165,10 +168,12 @@ def test_stiefel_descent_as_a_cuda_graph_matches_its_eager_steps():
     hs, V, M, r = init(torch.linspace(0.2, 1.8, n, device=dev),
                        *(torch.randn((n, 2 * D, D), generator=gen).to(dev) for _ in range(2)))
     eager = (V, M, r)
+    _lib.reset_launches()
     for _ in range(30):
         eager = advance(*eager, hs, 2)
     graphed = advance(V, M, r, hs, 60)
     torch.cuda.synchronize()
+    assert _lib.launches["stiefel_unroll_fwd"] == _lib.launches["stiefel_unroll_bwd"] == 60 + 3
     assert (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32) == ("highest", False)
     held = torch.cuda.memory_allocated()
     advance(V, M, r, hs, 3)  # another capture leaves nothing behind (no new stream, no new cuBLAS workspace)
@@ -188,7 +193,7 @@ def test_stiefel_descent_as_a_cuda_graph_opens_a_step_span_a_replay():
     and 8 replay spans (on the CPU, none: tests/test_torch_spans.py)."""
     assert stiefel_advance_span_counts(require_cuda(), 10) == {
         "stiefel.step": 10, "stiefel.replay": 8, "stiefel.capture": 1, "stiefel.energy": 3,
-        "stiefel.backward": 3, "stiefel.retract": 3}
+        "stiefel.backward": 3, "stiefel.retract": 3, "kernel.stiefel_unroll_fwd": 3, "kernel.stiefel_unroll_bwd": 3}
 
 
 @pytest.mark.cuda
@@ -738,7 +743,9 @@ def test_k6_views_and_lazy_conjugates():
 def test_stiefel_sweep_on_the_card_matches_the_cpu():
     """The large-D sweep (D = 8, 16 points, 60 steps, float32) on the card
     against the same sweep in float32 on the CPU, the same starts: energies
-    to 1e-4, both never below exact by 1e-4; no hand kernel launches."""
+    to 1e-4, both never below exact by 1e-4; the card's unroll runs in its
+    two kernels (two eager steps and the capture of the graphed descent,
+    then the readout's forward) and no other hand kernel launches."""
     from qmps_torch.ham.exact import tfim_gs_energy_f64
     from qmps_torch.parallel.sweep import sweep_ground_states_stiefel
 
@@ -747,12 +754,94 @@ def test_stiefel_sweep_on_the_card_matches_the_cpu():
     _lib.reset_launches()
     es_c, As_c, _ = sweep_ground_states_stiefel(gs.to(dev), D=8, steps=60)
     torch.cuda.synchronize()
-    assert not any(_lib.launches.values())
+    assert _lib.launches == {**dict.fromkeys(_lib.launches, 0), "stiefel_unroll_fwd": 4, "stiefel_unroll_bwd": 3}
     es_h, _, _ = sweep_ground_states_stiefel(gs, D=8, steps=60)
     assert es_c.device.type == "cuda" and As_c.dtype == torch.complex64
     np.testing.assert_allclose(to_np(es_c), to_np(es_h), atol=1e-4)
     exact = tfim_gs_energy_f64(to_np(gs).astype(np.float64))
     assert np.all(to_np(es_c) - exact > -1e-4) and np.all(to_np(es_h) - exact > -1e-4)
+
+
+def _unroll_inputs(D, rows, dev, seed):
+    """Seeded isometries V (rows, D, 2, D) complex64 on ``dev``, r0 = I /
+    sqrt(D) as an expand over the rows (the sweep's first step) and a
+    cotangent of r."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, 2 * D, D)) + 1j * rng.normal(size=(rows, 2 * D, D))
+    V = torch.from_numpy(np.linalg.qr(X)[0].astype(np.complex64)).to(dev).reshape(rows, D, 2, D)
+    r0 = (torch.eye(D, dtype=torch.complex64, device=dev) / D ** 0.5).expand(rows, D, D)
+    g = torch.from_numpy((rng.normal(size=(rows, D, D)) + 1j * rng.normal(size=(rows, D, D))).astype(np.complex64))
+    return V, r0, g.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4, 16, 32])
+def test_stiefel_unroll_kernels_match_the_twin(D):
+    """The unroll's two kernels on 1,024 rows, 96 iterations, from an r0
+    that is an expand, through ``right_eigpair_warm_unroll`` (one launch
+    each way; the loss reads conj(r), so r's cotangent arrives as a lazy
+    conjugate): r, lam and A's cotangent against the plain twins at
+    complex128 from the same complex64 inputs, each error over the largest
+    entry within 4x the twins' own at complex64 on the card (cuBLAS's sums)
+    and 2e-5 for r and lam, 1e-4 for the cotangent; -s prints them."""
+    from qmps_torch.kernels import stiefel_unroll as su
+    from qmps_torch.mps.transfer import right_eigpair_warm_unroll
+
+    dev = require_cuda()
+    rows, iters = 1024, 96
+    V, r0, g = _unroll_inputs(D, rows, dev, 100 + D)
+    A = V.transpose(1, 2).requires_grad_()
+    _lib.reset_launches()
+    lam, r = right_eigpair_warm_unroll(A, A, r0, iters)
+    (gA,) = torch.autograd.grad((r.conj() * g).real.sum(), A)
+    torch.cuda.synchronize()
+    assert _lib.launches == {**dict.fromkeys(_lib.launches, 0), "stiefel_unroll_fwd": 1, "stiefel_unroll_bwd": 1}
+    V64 = V.detach().to(torch.complex128)
+    lam_p, r_p, rs_p, ns_p = su._fwd_plain(V64, r0.to(torch.complex128), iters, True)
+    gV_p = su._bwd_plain(V64, rs_p, ns_p, r_p, g.to(torch.complex128))
+    lam_s, r_s, rs_s, ns_s = su._fwd_plain(V.detach(), r0, iters, True)
+    gV_s = su._bwd_plain(V.detach(), rs_s, ns_s, r_s, g)
+
+    def err(x, ref):
+        return ((x.to(ref.dtype) - ref).abs().max() / ref.abs().max()).item()
+
+    errs = {"r": (err(r, r_p), err(r_s, r_p)), "lam": (err(lam, lam_p), err(lam_s, lam_p)),
+            "gA": (err(gA.transpose(1, 2), gV_p), err(gV_s, gV_p))}
+    print(f"D = {D}: kernel, twin at complex64 against complex128: {errs}")
+    for name, (kernel, twin) in errs.items():
+        assert kernel <= max(4 * twin, 1e-4 if name == "gA" else 2e-5), (name, kernel, twin)
+
+
+@pytest.mark.cuda
+def test_stiefel_unroll_dispatch():
+    """``right_eigpair_warm_unroll`` on the card takes the kernels for
+    complex64 with B the same tensor as A, at the package's pin and under
+    ``_matmul_tier("default")`` alike (the kernels run full float32 at every
+    tier: the same values), and plain autograd through ``_power_forward`` at
+    complex128 and for a B that is another tensor: no launch, the same
+    values as ``_power_forward``."""
+    from qmps_torch.mps.transfer import _power_forward, right_eigpair_warm_unroll
+    from qmps_torch.parallel.sweep import _matmul_tier
+
+    dev = require_cuda()
+    D, rows, iters = 8, 64, 24
+    V, r0, _ = _unroll_inputs(D, rows, dev, 3)
+    A = V.transpose(1, 2)
+    for A_, r0_, case in [(A.to(torch.complex128), r0.to(torch.complex128), "complex128"), (A, r0, "other B")]:
+        _lib.reset_launches()
+        lam, r = right_eigpair_warm_unroll(A_, A_.clone() if case == "other B" else A_, r0_, iters)
+        lam_p, r_p = _power_forward(A_, A_, r0_, iters)
+        torch.cuda.synchronize()
+        assert not any(_lib.launches.values()), case
+        assert torch.equal(r, r_p) and torch.equal(lam, lam_p), case
+    out = {}
+    for tier in (None, "default"):
+        _lib.reset_launches()
+        with _matmul_tier(tier):
+            out[tier] = right_eigpair_warm_unroll(A, A, r0, iters)
+        torch.cuda.synchronize()
+        assert _lib.launches == {**dict.fromkeys(_lib.launches, 0), "stiefel_unroll_fwd": 1}, tier
+    assert all(torch.equal(x, y) for x, y in zip(out[None], out["default"]))
 
 
 @pytest.mark.cuda
@@ -871,7 +960,9 @@ def test_kernel_spans_hold_their_launch_on_the_profilers_clock():
 def test_kernel_spans_match_the_launch_counter():
     """Every hand kernel's wrapper records one ``kernel.<name>`` span a
     launch: the spans of a short sweep (K2, K3), K1, K7 below and K8 above
-    N = 16, K4, K5 and K6 counted by name equal ``_lib.launches``."""
+    N = 16, K4, K5, K6 and the unroll's two (a forward and its backward)
+    counted by name equal ``_lib.launches``."""
+    from qmps_torch.mps.transfer import right_eigpair_warm_unroll
     from qmps_torch.utils import profiling
 
     dev = require_cuda()
@@ -893,6 +984,10 @@ def test_kernel_spans_match_the_launch_counter():
         lam, v, w = tdf._fwd_cuda(A, Bt, W, 48, True)
         tdf._bwd_cuda(A, Bt, W, lam, v, w, torch.ones(100, device=dev))
         manifold_overlap_pallas(U[0], U[1], U[2], U[3], M, M.mH, W16)
+        Au = torch.linalg.qr(torch.randn(8, 8, 4, dtype=torch.complex64, device=dev))[0]
+        Au = Au.reshape(8, 4, 2, 4).transpose(1, 2).requires_grad_()
+        r0 = torch.eye(4, dtype=torch.complex64, device=dev).expand(8, 4, 4)
+        torch.autograd.grad(right_eigpair_warm_unroll(Au, Au, r0, 6)[1].real.sum(), Au)
         torch.cuda.synchronize()
     finally:
         profiling.spans_off()

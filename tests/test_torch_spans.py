@@ -262,3 +262,51 @@ def test_launch_passes_the_calling_convention(monkeypatch, args, index, rc, expe
     assert fake.calls == [expected + (1000 + index,)]
     assert entered == ([index] if index != current else [])
     assert _lib.launches == {**dict.fromkeys(_lib.launches, 0), "energy_fwd": 1}
+
+
+class _FakeUnrollLibrary:
+    """The unroll's two C entry points, recording their arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def qmps_stiefel_unroll_fwd(self, *args):
+        self.calls.append(("fwd",) + args)
+        return 0
+
+    def qmps_stiefel_unroll_bwd(self, *args):
+        self.calls.append(("bwd",) + args)
+        return 0
+
+
+@pytest.mark.parametrize("save", [True, False], ids=["saving", "no_grad"])
+def test_unroll_wrappers_open_their_kernel_spans_and_pass_the_c_order(monkeypatch, spans, save):
+    """The unroll's wrappers against a fake library on the CPU (the card's
+    checks of type and device waived): each runs inside its span
+    ``kernel.stiefel_unroll_fwd`` / ``_bwd``, counts one launch, and hands
+    the C entry point its pointers in order (the forward's saved iterates
+    as null pointers when it saves nothing), then B, D and the iterations."""
+    from qmps_torch.kernels import stiefel_unroll as su
+
+    fake = _FakeUnrollLibrary()
+    monkeypatch.setattr(_lib, "_lib", fake)
+    monkeypatch.setattr(_lib, "require", lambda *a: None)
+    monkeypatch.setattr(_lib, "launches", dict.fromkeys(_lib.launches, 0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000, raising=False)
+    B, D, iters = 3, 4, 5
+    V, r0 = torch.zeros(B, D, 2, D, dtype=torch.complex64), torch.zeros(B, D, D, dtype=torch.complex64)
+    lam, r, rs, ns = su._fwd_cuda(V, r0, iters, save)
+    assert (rs is None) == (ns is None) == (not save)
+    if save:
+        su._bwd_cuda(V, rs, ns, r, r0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    want = [("fwd", ptr(V), ptr(r0), ptr(r), ptr(lam), ptr(rs), ptr(ns), B, D, iters, 1000)]
+    if save:
+        want.append(("bwd", ptr(V), ptr(rs), ptr(ns), ptr(r), ptr(r0)) + fake.calls[1][6:7] + (B, D, iters, 1000))
+    assert fake.calls == want
+    names = [s.name for s in profiling.drain_spans()]
+    assert names == ["kernel.stiefel_unroll_fwd"] + ["kernel.stiefel_unroll_bwd"] * save
+    assert _lib.launches == {**dict.fromkeys(_lib.launches, 0), "stiefel_unroll_fwd": 1,
+                             "stiefel_unroll_bwd": int(save)}
+
