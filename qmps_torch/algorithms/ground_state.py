@@ -19,6 +19,7 @@ come from ``torch.Generator``s.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -38,6 +39,7 @@ from ..optim.minimize import (
     minimize_scipy,
 )
 from ..optim.rotosolve import rotosolve
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -377,7 +379,8 @@ def _recycled_r0(D: int, dtype, device) -> torch.Tensor:
 
 
 def _recycled_adam_core(loss_env, x0: torch.Tensor, r0: torch.Tensor, steps: int, lr: float,
-                        recycle_iters: int, final_iters: int = 200, record: bool = True):
+                        recycle_iters: int, final_iters: int = 200, record: bool = True,
+                        spans: tuple[str, str, str] | None = None, read=None):
     """(x, hist, e): ``minimize_adam`` (the rate decayed as optax's
     ``cosine_decay_schedule(lr, steps, alpha=0.05)``) with environment
     recycling.
@@ -386,7 +389,12 @@ def _recycled_adam_core(loss_env, x0: torch.Tensor, r0: torch.Tensor, steps: int
     differentiated graph) and the loss is the sum of ``values``, so a batch
     of independent rows descends as each row alone.  e is a boosted
     ``final_iters`` evaluation at the returned x, never the recycled
-    residual; hist (if ``record``) the pre-update summed losses."""
+    residual; hist (if ``record``) the pre-update summed losses.
+    ``spans`` (step, backward, final read): span names, the first two
+    ``adam_steps``'s, the last opened around the final evaluation; None
+    opens none.  ``read(x, r)``, if given, is the final evaluation from the
+    last environment r in place of ``final_iters`` matvecs of
+    ``loss_env``."""
     env = [r0]
 
     def loss(x):
@@ -394,9 +402,10 @@ def _recycled_adam_core(loss_env, x0: torch.Tensor, r0: torch.Tensor, steps: int
         env[0] = r_new.detach()
         return v.sum()
 
-    x, hist = adam_steps(loss, x0, steps, lr, cosine_decay(steps), record=record)
-    with torch.no_grad():
-        e, _ = loss_env(x, env[0], final_iters)
+    x, hist = adam_steps(loss, x0, steps, lr, cosine_decay(steps), record=record,
+                         spans=None if spans is None else spans[:2])
+    with torch.no_grad(), (contextlib.nullcontext() if spans is None else span(spans[2])):
+        e = loss_env(x, env[0], final_iters)[0] if read is None else read(x, env[0])
     return x, hist, e
 
 

@@ -23,13 +23,18 @@
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+from functools import partial
 from typing import Callable
 
 import torch
 
 from ..config import default_dtypes, resolve_device
+from ..utils.profiling import span
+
+_no_span = contextlib.nullcontext
 
 
 @dataclasses.dataclass
@@ -55,21 +60,28 @@ def exponential_decay(steps: int, rate: float) -> Callable[[int], float]:
 
 
 def adam_steps(loss: Callable, x0: torch.Tensor, steps: int, lr: float,
-               schedule: Callable[[int], float] | None = None, record: bool = False):
+               schedule: Callable[[int], float] | None = None, record: bool = False,
+               spans: tuple[str, str] | None = None):
     """``steps`` adam updates of x0 (a fresh optimizer state) on the scalar
-    ``loss``; the rate is lr, or lr * schedule(k) at update k.  Returns
-    (x, the pre-update losses (steps,) if ``record`` else None)."""
+    ``loss``; the rate is lr, or lr * schedule(k) at update k.  ``spans``
+    (step, backward): the names of the spans (``utils.profiling``) opened
+    around each update (its forward, backward, adam step and schedule
+    step) and around its backward; None opens none.  Returns (x, the
+    pre-update losses (steps,) if ``record`` else None)."""
     x = x0.detach().clone().requires_grad_()
     opt = torch.optim.Adam([x], lr=lr, fused=x.is_cuda)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, schedule) if schedule is not None else None
+    step_span, backward_span = (_no_span, _no_span) if spans is None else (partial(span, n) for n in spans)
     hist = []
     for _ in range(steps):
-        opt.zero_grad(set_to_none=True)
-        value = loss(x)
-        value.backward()
-        opt.step()
-        if sched is not None:
-            sched.step()
+        with step_span():
+            opt.zero_grad(set_to_none=True)
+            value = loss(x)
+            with backward_span():
+                value.backward()
+            opt.step()
+            if sched is not None:
+                sched.step()
         if record:
             hist.append(value.detach())
     return x.detach(), torch.stack(hist) if record else None

@@ -76,20 +76,33 @@ def _sweep_ansatz(ansatz: str, D: int):
 
 
 def _recycled_loss_env(build, D: int):
-    """(hs, p, r, iters) -> (energies, r_new) with the warm fixed point and
-    plain autograd back through its iterations ("unroll": the LU adjoint
-    builds a (D^2+1)^2 system per row), shared by the recycled optimizer
-    and the refine passes' evaluator, so both read energies from the same
-    solve."""
+    """(hs, p, r, iters, project=False) -> (energies, r_new) with the warm
+    fixed point and plain autograd back through its iterations ("unroll":
+    the LU adjoint builds a (D^2+1)^2 system per row), shared by the
+    recycled optimizer and the refine passes' evaluator, so both read
+    energies from the same solve.  ``project``: r is first projected onto
+    the transfer matrix's dominant eigenspace (``_dominant_environment``,
+    the Stiefel readout's), as every read of an energy does: the matvecs
+    alone converge as |lam_2 / lam_1|^iters, which the descent drives near
+    1 on some states."""
     from ..embed.unitaries import unitary_to_tensor
     from ..optim.riemann import isometry_energy_warm
 
-    def loss_env(hs, p, r, iters):
-        A = unitary_to_tensor(build(p))
-        V = A.transpose(-3, -2).reshape(A.shape[:-3] + (2 * D, D))  # rows (i, s)
-        return isometry_energy_warm(V, hs, D, r, iters, "unroll")
+    def loss_env(hs, p, r, iters, project=False):
+        with span("chart.build"):
+            A = unitary_to_tensor(build(p))
+            V = A.transpose(-3, -2).reshape(A.shape[:-3] + (2 * D, D))  # rows (i, s)
+        with span("chart.energy"):
+            if project:
+                r = _dominant_environment(V, r, D)
+            return isometry_energy_warm(V, hs, D, r, iters, "unroll")
 
     return loss_env
+
+
+#: the chart sweeps' spans of an adam step, its backward and an evaluation
+#: (the final read of a descent, a refine pass's neighbour evaluation)
+_CHART_SPANS = ("chart.step", "chart.backward", "chart.evaluate")
 
 
 def _chart_programs(build, D: int, steps: int, lr: float, recycle: bool, recycle_iters: int = 24,
@@ -99,7 +112,11 @@ def _chart_programs(build, D: int, steps: int, lr: float, recycle: bool, recycle
     energies those of the returned parameters (with ``recycle``, a boosted
     ``final_iters`` evaluation, never the recycled residual);
     ``evaluate(hs, p)`` reads fixed parameters with the optimizer's final
-    solve; ``step_loss(hs, p)`` is the summed loss of a first step."""
+    solve (recycled: the environment projected onto the dominant
+    eigenspace, then ``final_iters`` matvecs); ``step_loss(hs, p)`` is the
+    summed loss of a first step.  Each step opens the span ``chart.step``
+    (with ``chart.build``, ``chart.energy`` and ``chart.backward``
+    inside), each evaluation and final read ``chart.evaluate``."""
     from ..algorithms.ground_state import _recycled_adam_core, _recycled_r0
     from ..objectives.energy import energy_exact_env
     from ..optim.minimize import adam_steps, cosine_decay
@@ -109,24 +126,32 @@ def _chart_programs(build, D: int, steps: int, lr: float, recycle: bool, recycle
     def r0(p):
         return _recycled_r0(D, complex_type(p), p.device).expand(p.shape[:-1] + (D, D))
 
+    def exact_loss(hs, p):
+        with span("chart.build"):
+            U = build(p)
+        with span("chart.energy"):
+            return energy_exact_env(U, hs)
+
     def step_loss(hs, p):
         if recycle:
             return loss_env(hs, p, r0(p), recycle_iters)[0].sum()
-        return energy_exact_env(build(p), hs).sum()
+        return exact_loss(hs, p).sum()
 
     def optimize(hs, p0):
         if recycle:
             x, _, e = _recycled_adam_core(lambda p, r, it: loss_env(hs, p, r, it), p0, r0(p0), steps, lr,
-                                          recycle_iters, final_iters, record=False)
+                                          recycle_iters, final_iters, record=False, spans=_CHART_SPANS,
+                                          read=lambda p, r: loss_env(hs, p, r, final_iters, project=True)[0])
             return e, x
-        x, _ = adam_steps(lambda p: step_loss(hs, p), p0, steps, lr, cosine_decay(steps))
+        x, _ = adam_steps(lambda p: step_loss(hs, p), p0, steps, lr, cosine_decay(steps), spans=_CHART_SPANS[:2])
         return evaluate(hs, x), x
 
     @torch.no_grad()
     def evaluate(hs, p):
-        if recycle:
-            return loss_env(hs, p, r0(p), final_iters)[0]
-        return energy_exact_env(build(p), hs)
+        with span("chart.evaluate"):
+            if recycle:
+                return loss_env(hs, p, r0(p), final_iters, project=True)[0]
+            return exact_loss(hs, p)
 
     return optimize, evaluate, step_loss
 
@@ -210,8 +235,15 @@ def _sweep_from_starts(gs: torch.Tensor, p0s: torch.Tensor, D: int, ansatz: str,
         c = chunk_of(hs_b)
         return torch.cat([evaluate(hs_b[i:i + c], p[i:i + c]) for i in range(0, hs_b.shape[0], c)])
 
-    run = shard_over_sweep(optimize_block, mesh)
+    optimize_all = shard_over_sweep(optimize_block, mesh)
     run_eval = shard_over_sweep(evaluate_block, mesh)
+
+    def run(hs, p0):
+        """One descent of every point: the random-start one or a refine
+        pass's re-optimization."""
+        with span("chart.optimize"):
+            return optimize_all(hs, p0)
+
     es, ps = run(hs_all, p0s)
     for kp in range(refine_passes):
         for shift in (1, -1):
@@ -272,27 +304,29 @@ def sweep_ground_states(gs, D: int = 2, ansatz: str = "suN", steps: int = 300, l
     the precision follows a tensor gs (float32 -> complex64), else the
     device (``config.default_dtypes``).
 
-    Returns (energies (n,), params (n, n_params)).
+    Returns (energies (n,), params (n, n_params)).  The call is the span
+    ``chart.job``; each descent ``chart.optimize`` (``_sweep_from_starts``).
     """
     device = resolve_device(device, gs)
     _, rdtype = default_dtypes(device, gs if isinstance(gs, torch.Tensor) else None)
-    gs = torch.as_tensor(gs).to(device, rdtype)
-    n = gs.shape[0]
     _, n_params = _sweep_ansatz(ansatz, D)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    p0s = torch.randn((n, restarts, n_params), generator=generator, dtype=torch.float64) * 0.5
-    if warm_params is not None:
-        warm_params = torch.as_tensor(warm_params)
-        if tuple(warm_params.shape) != (n, n_params):
-            raise ValueError(f"warm_params must be {(n, n_params)}, got {tuple(warm_params.shape)}")
-        p0s[:, 0] = warm_params.to(p0s)
 
     def jitter(k, shift, shape):
         return 0.05 * torch.randn(shape, generator=generator, dtype=torch.float64)
 
-    return _sweep_from_starts(gs, p0s.to(device, rdtype), D, ansatz, steps, lr, refine_passes,
-                              D >= 4 if recycle is None else recycle, point_chunk, jitter, mesh)
+    with span("chart.job"):
+        gs = torch.as_tensor(gs).to(device, rdtype)
+        n = gs.shape[0]
+        p0s = torch.randn((n, restarts, n_params), generator=generator, dtype=torch.float64) * 0.5
+        if warm_params is not None:
+            warm_params = torch.as_tensor(warm_params)
+            if tuple(warm_params.shape) != (n, n_params):
+                raise ValueError(f"warm_params must be {(n, n_params)}, got {tuple(warm_params.shape)}")
+            p0s[:, 0] = warm_params.to(p0s)
+        return _sweep_from_starts(gs, p0s.to(device, rdtype), D, ansatz, steps, lr, refine_passes,
+                                  D >= 4 if recycle is None else recycle, point_chunk, jitter, mesh)
 
 
 def _grown_from_starts(gs: torch.Tensor, D: int, steps: int, lr: float, restarts: int, refine_passes: int,

@@ -3,8 +3,9 @@
 
 A span is one named stretch of host time at a layer boundary of the
 program: the sweep drivers' job, start, steps and pick (the fused and the
-Stiefel sweep's), the energy objective's forward and backward, each kernel
-wrapper's call.  Spans are
+Stiefel sweep's), the chart sweep's job, descents, steps (the circuit's
+build, the energy, the backward) and evaluations, the energy objective's
+forward and backward, each kernel wrapper's call.  Spans are
 off by default; ``span(name)`` then costs one flag read and returns a
 shared empty context.  With ``spans_on()`` each span is appended, as it
 closes, to a list in memory; ``drain_spans()`` returns and clears it.

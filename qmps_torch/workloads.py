@@ -133,7 +133,12 @@ class SweepConfig:
     when there is more than one, and runs unsharded on one.  Whether that
     is faster is not measured: no run has had two cards, and on one card
     two shards (the card named twice) run 2.1-2.6x slower than unsharded,
-    because their worker threads share the interpreter lock."""
+    because their worker threads share the interpreter lock.
+
+    bench.py's ``sweep_deep_bw`` row (``ansatz="deep_bw"``, D = 8, 2
+    refine passes) is the benchmark's cell ``deep_bw_d8_g1024``
+    (``port_bench/configs/tfim_deep_bw_d8.json``), at 1,024 points and one
+    restart."""
 
     n_points: int = 256
     D: int = 2

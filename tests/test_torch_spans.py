@@ -3,8 +3,12 @@ then recording nothing, the fused sweep's job, start, steps and pick with
 their parents and root, the energy objective and the kernel wrappers'
 spans, the Stiefel sweep's job, chunks, start, steps (with their energy,
 backward and retraction; on the CPU never a replay or a capture) and pick,
-both sweeps' results bit for bit the same with spans on and off, and the
-kernels' one launch path (``_lib.launch``) against a fake library.
+the chart sweep's job, descents, steps (with their build, energy and
+backward) and evaluations, every sweep's results bit for bit the same with
+spans on and off, ``adam_steps``'s span seam (the quench's results
+unchanged), the chart readers of ``port_bench/metrics`` on a trace without
+their spans, and the kernels' one launch path (``_lib.launch``) against a
+fake library.
 """
 import ast
 import contextlib
@@ -16,10 +20,14 @@ import torch
 from _torch_parity import stiefel_advance_span_counts
 
 from qmps_torch.kernels import _lib
-from qmps_torch.parallel import sweep_ground_states_fused, sweep_ground_states_stiefel
+from qmps_torch.optim import minimize
+from qmps_torch.parallel import sweep_ground_states, sweep_ground_states_fused, sweep_ground_states_stiefel
 from qmps_torch.utils import profiling
 
-KERNELS = pathlib.Path(__file__).resolve().parents[1] / "qmps_torch" / "kernels"
+REPO = pathlib.Path(__file__).resolve().parents[1]
+KERNELS = REPO / "qmps_torch" / "kernels"
+CHART_READERS = ["span_ms.chart_step", "span_launches.chart_step", "span_idle_pct.chart_step",
+                 "span_ms.chart_evaluate"]
 
 
 @pytest.fixture
@@ -148,6 +156,172 @@ def test_stiefel_advance_on_the_cpu_steps_eagerly_with_no_replay_or_capture():
     ``stiefel.capture`` (a card's graphed descent: tests/test_torch_cuda.py)."""
     assert stiefel_advance_span_counts(torch.device("cpu"), 10) == {
         "stiefel.step": 10, "stiefel.energy": 10, "stiefel.backward": 10, "stiefel.retract": 10}
+
+
+def _chart(steps=3, recycle=None):
+    """The "deep_bw" chart sweep at D = 4 on 4 points, 2 refine passes:
+    five descents (the random start, then each pass both ways)."""
+    return sweep_ground_states(torch.tensor([0.4, 0.9, 1.1, 1.6], dtype=torch.float64), D=4, ansatz="deep_bw",
+                               steps=steps, refine_passes=2, generator=torch.Generator().manual_seed(7),
+                               recycle=recycle)
+
+
+def test_chart_spans_are_off_by_default_and_results_are_bitwise_the_same():
+    assert not profiling._on
+    profiling.drain_spans()
+    out0 = _chart()
+    assert profiling.drain_spans() == []
+    profiling.spans_on()
+    try:
+        out1 = _chart()
+        assert profiling.drain_spans()
+    finally:
+        profiling.spans_off()
+        profiling.drain_spans()
+    assert all(torch.equal(a, b) for a, b in zip(out0, out1))
+
+
+@pytest.mark.parametrize("recycle", [True, False])
+def test_chart_sweep_records_its_job_descents_steps_and_evaluations(spans, recycle):
+    """3 steps a descent, 2 refine passes, one chunk: the job; one
+    ``chart.optimize`` a descent (5); one ``chart.step`` a step (15), each
+    holding its build, energy and backward in that order; one
+    ``chart.evaluate`` for each descent's final read (5, inside its
+    descent) and each neighbour evaluation (4, inside the job); a build and
+    an energy inside each evaluation, and one more pair inside the job, the
+    probe of one row's saved tensors that sizes the chunks."""
+    _chart(3, recycle)
+    got = profiling.drain_spans()
+    ids = {s.id: s for s in got}
+    by_name = {}
+    for s in got:
+        by_name.setdefault(s.name, []).append(s)
+    assert {k: len(v) for k, v in by_name.items()} == {
+        "chart.job": 1, "chart.optimize": 5, "chart.step": 15, "chart.backward": 15, "chart.evaluate": 9,
+        "chart.build": 15 + 9 + 1, "chart.energy": 15 + 9 + 1}
+    (job,) = by_name["chart.job"]
+    assert job.parent_id is None and all(s.root_id == job.id for s in got)
+
+    def parents(name):
+        return sorted(ids[s.parent_id].name for s in by_name[name])
+
+    assert parents("chart.optimize") == ["chart.job"] * 5
+    assert parents("chart.step") == ["chart.optimize"] * 15
+    assert parents("chart.backward") == ["chart.step"] * 15
+    assert parents("chart.evaluate") == ["chart.job"] * 4 + ["chart.optimize"] * 5
+    assert parents("chart.build") == parents("chart.energy") == sorted(
+        ["chart.evaluate"] * 9 + ["chart.job"] + ["chart.step"] * 15)
+    for s in got:  # a child lies inside its parent
+        if s.parent_id is not None:
+            p = ids[s.parent_id]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    for step in by_name["chart.step"]:  # build, then energy, then backward
+        kids = sorted((s for s in got if s.parent_id == step.id), key=lambda s: s.start_ns)
+        assert [s.name for s in kids] == ["chart.build", "chart.energy", "chart.backward"]
+    for opt in by_name["chart.optimize"]:  # the steps, then the final read
+        kids = sorted((s for s in got if s.parent_id == opt.id), key=lambda s: s.start_ns)
+        assert [s.name for s in kids] == ["chart.step"] * 3 + ["chart.evaluate"]
+
+
+def _adam_steps_before_the_seam(loss, x0, steps, lr, schedule=None, record=False):
+    """``adam_steps`` as it was before its span seam, verbatim."""
+    x = x0.detach().clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=lr, fused=x.is_cuda)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, schedule) if schedule is not None else None
+    hist = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        value = loss(x)
+        value.backward()
+        opt.step()
+        if sched is not None:
+            sched.step()
+        if record:
+            hist.append(value.detach())
+    return x.detach(), torch.stack(hist) if record else None
+
+
+def test_adam_steps_seam_leaves_the_arithmetic_unchanged(spans):
+    """With its spans named and on, ``adam_steps`` gives what the loop
+    before the seam gives, bit for bit, and opens one step span a step
+    with its backward inside."""
+    w = torch.linspace(-1.0, 2.0, 6, dtype=torch.float64)
+
+    def loss(x):
+        return ((x - w) ** 2 * torch.cos(x)).sum()
+
+    x0 = torch.zeros(6, dtype=torch.float64)
+    want = _adam_steps_before_the_seam(loss, x0, 7, 0.1, minimize.cosine_decay(7), record=True)
+    got = minimize.adam_steps(loss, x0, 7, 0.1, minimize.cosine_decay(7), record=True, spans=("s", "b"))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    recorded = profiling.drain_spans()
+    ids = {s.id: s for s in recorded}
+    assert [s.name for s in recorded].count("s") == 7
+    assert all(s.name == "s" or ids[s.parent_id].name == "s" for s in recorded)
+    assert minimize.adam_steps(loss, x0, 7, 0.1)[0].equal(_adam_steps_before_the_seam(loss, x0, 7, 0.1)[0])
+
+
+def test_the_quench_is_unchanged_by_the_seam(monkeypatch):
+    """The quench family, whose inner steps and ground state run
+    ``adam_steps``, gives the same overlaps bit for bit with the loop from
+    before the seam put in its place."""
+    from qmps_torch.algorithms import evolve
+
+    def quench():
+        return evolve.batched_quench_sweep(1.5, [0.2, 0.5], 0.1, 2, inner_steps=5, gs_steps=20,
+                                           params0=torch.linspace(-0.5, 0.5, 15, dtype=torch.float64), device="cpu")
+
+    t0, les0 = quench()
+    monkeypatch.setattr(evolve, "adam_steps", _adam_steps_before_the_seam)
+    monkeypatch.setattr(minimize, "adam_steps", _adam_steps_before_the_seam)
+    t1, les1 = quench()
+    assert torch.equal(torch.as_tensor(t0), torch.as_tensor(t1)) and torch.equal(les0, les1)
+
+
+@pytest.mark.parametrize("name", CHART_READERS)
+def test_chart_readers_read_nothing_without_their_spans(name):
+    """Each chart reader gives None on a spans-on job whose spans hold no
+    ``chart.*`` span (a program from before them: the fused sweep's), and
+    on a run without spans at all."""
+    from port_bench.harness import Run, load_module
+    from port_bench.spans import SpanTrace
+
+    reader = load_module(REPO / "port_bench" / "metrics" / f"{name}.py", f"port_bench_metric_{name}")
+    ms = 1_000_000
+    sp = [profiling.Span(1, None, 1, "sweep.job", 0, 10 * ms, 1), profiling.Span(2, 1, 1, "sweep.step", ms, 5 * ms, 1)]
+    events = [(False, 1, "cudaLaunchKernel", 2 * ms, 2 * ms + 1000), (True, 7, "k", 3 * ms, 4 * ms),
+              (True, 7, "k", 6 * ms, 7 * ms)]
+    run = Run(None, torch.device("cuda"))
+    run.spans, run.traced_spans, run.span_trace = sp, sp, SpanTrace(events)
+    assert reader.read(run) is None
+    run.spans = None
+    assert reader.read(run) is None
+
+
+@pytest.mark.parametrize("name,want", [("span_ms.chart_step", 3.0), ("span_launches.chart_step", 2.0),
+                                       ("span_idle_pct.chart_step", 200 / 3), ("span_ms.chart_evaluate", 3.0)])
+def test_chart_readers_on_synthetic_spans(name, want):
+    """A job of 12 ms: a descent 1-10 ms with steps 1-3, 3-6 and 6-9 ms
+    (median 3 ms) and its final read 9-10, a neighbour evaluation 10-12
+    (evaluations 3 ms in all); launch calls at 2, 2.5, 4, 5, 7, 8 (in the
+    steps: 2 a step) and 11 ms; device work 0-2, 4-10 and 11-12 ms, so
+    idle 2-4 (in a step) and 10-11 (not): 2/3 of the idle time."""
+    from port_bench.harness import Run, load_module
+    from port_bench.spans import SpanTrace
+
+    reader = load_module(REPO / "port_bench" / "metrics" / f"{name}.py", f"port_bench_metric_{name}")
+    ms = 1_000_000
+    sp = [profiling.Span(1, None, 1, "chart.job", 0, 12 * ms, 1),
+          profiling.Span(2, 1, 1, "chart.optimize", ms, 10 * ms, 1)]
+    sp += [profiling.Span(3 + i, 2, 1, "chart.step", a * ms, b * ms, 1) for i, (a, b) in enumerate([(1, 3), (3, 6),
+                                                                                                      (6, 9)])]
+    sp += [profiling.Span(6, 2, 1, "chart.evaluate", 9 * ms, 10 * ms, 1),
+           profiling.Span(7, 1, 1, "chart.evaluate", 10 * ms, 12 * ms, 1)]
+    events = [(False, 1, "cudaLaunchKernel", int(t * ms), int(t * ms) + 1000) for t in (2, 2.5, 4, 5, 7, 8, 11)]
+    events += [(True, 7, "k", a * ms, b * ms) for a, b in ((0, 2), (4, 10), (11, 12))]
+    run = Run(None, torch.device("cuda"))
+    run.spans, run.traced_spans, run.span_trace = sp, sp, SpanTrace(events)
+    assert reader.read(run) == pytest.approx(want)
 
 
 def _worker():
